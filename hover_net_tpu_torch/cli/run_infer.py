@@ -1,0 +1,94 @@
+"""Inference CLI of the port: the `tile` subcommand.
+
+Counterpart of hover_net_tpu/cli/run_infer.py, with the same flags plus
+`--device` (default `cuda`; without a GPU that raises, it never falls
+back to the CPU). Checkpoints are reference PyTorch `.tar` files; convert
+a JAX `.msgpack` with hover_net_tpu.models.checkpoints.save_torch_tar.
+
+  python -m hover_net_tpu_torch.cli.run_infer \
+      --model_path ckpt.tar --model_mode fast --nr_types 6 \
+      --type_info_path type_info.json \
+      tile --input_dir in/ --output_dir out/ --save_qupath
+
+The `wsi` subcommand, `--host_post_proc`, `--profile_dir` and
+`--n_devices` above 1 are not ported yet and exit with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+
+def build_parser():
+    p = argparse.ArgumentParser("hover_net_tpu_torch.run_infer")
+    p.add_argument("--nr_types", type=int, default=0,
+                   help="number of nuclei types (0 = segmentation only)")
+    p.add_argument("--type_info_path", default=None)
+    p.add_argument("--model_path", required=True,
+                   help="reference-format .tar checkpoint")
+    p.add_argument("--model_mode", default="fast",
+                   choices=["original", "fast"])
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--width", type=int, default=64)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda, cuda:1, cpu)")
+    p.add_argument("--nr_inference_workers", type=int, default=8,
+                   help="accepted for parity; patches are gathered on the "
+                        "device")
+    p.add_argument("--nr_post_proc_workers", type=int, default=0,
+                   help="accepted for parity; post-processing runs on the "
+                        "device")
+    p.add_argument("--host_post_proc", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--profile_dir", default=None, help="not ported yet")
+    p.add_argument("--n_devices", type=int, default=1,
+                   help="only 1 is ported")
+
+    sub = p.add_subparsers(dest="command", required=True)
+    tile = sub.add_parser("tile")
+    tile.add_argument("--input_dir", required=True)
+    tile.add_argument("--output_dir", required=True)
+    tile.add_argument("--mem_usage", type=float, default=0.2,
+                      help="accepted for parity; one image at a time")
+    tile.add_argument("--draw_dot", action="store_true")
+    tile.add_argument("--save_qupath", action="store_true")
+    tile.add_argument("--save_raw_map", action="store_true")
+    tile.add_argument("--save_format", default="all", choices=["all", "json"],
+                      help="'all' writes mat/overlay/json; 'json' writes "
+                           "only the per-nucleus json (+qupath)")
+    sub.add_parser("wsi", help="not ported yet")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    unported = [name for name, on in (
+        ("the wsi subcommand", args.command == "wsi"),
+        ("--host_post_proc", args.host_post_proc),
+        ("--profile_dir", args.profile_dir is not None),
+        ("--n_devices > 1", args.n_devices > 1)) if on]
+    if unported:
+        sys.exit(f"hover_net_tpu_torch: {', '.join(unported)}: not ported "
+                 "yet (use hover_net_tpu.cli.run_infer)")
+    logging.basicConfig(
+        level=logging.INFO,
+        format="|%(asctime)s.%(msecs)03d| [%(levelname)s] %(message)s",
+        datefmt="%Y-%m-%d|%H:%M:%S")
+
+    from ..infer.tile import TileInferManager
+
+    mgr = TileInferManager(
+        model_path=args.model_path, mode=args.model_mode,
+        nr_types=args.nr_types if args.nr_types > 0 else None,
+        type_info_path=args.type_info_path, batch_size=args.batch_size,
+        width=args.width, device=args.device)
+    mgr.process_file_list(
+        args.input_dir, args.output_dir, draw_dot=args.draw_dot,
+        save_qupath=args.save_qupath, save_raw_map=args.save_raw_map,
+        save_format=args.save_format)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,151 @@
+"""Tile-inference building blocks on tensors.
+
+Counterpart of hover_net_tpu/infer/steps.py. The output contract is the
+JAX package's: a per-pixel channel concat of [tp argmax (typed only), np
+foreground prob, hv_x, hv_y] in NHWC, float32.
+
+`make_tile_pipeline` is the counterpart of the JAX `run_dynamic` program:
+padded image -> patch gather -> forward -> stitch -> reflect-101 mirror
+about the source with its valid mask -> post-processing (the CUDA tail
+kernel on a GPU) -> uint16 label compaction -> per-instance tables.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..models.hovernet import HoVerNet
+from ..ops.post_proc_cuda import proc_tail
+from ..ops.post_proc_device import (
+    compact_labels_u16,
+    energy_inputs,
+    instance_tables,
+)
+
+
+def infer_output(model: HoVerNet, imgs: torch.Tensor) -> torch.Tensor:
+    """NHWC images [N, H, W, 3] (uint8 or float, 0..255) -> NHWC float32
+    [N, h, w, C] head activations."""
+    out = model(imgs.permute(0, 3, 1, 2))
+    parts = []
+    if "tp" in out:
+        tp = torch.argmax(torch.softmax(out["tp"], dim=1), dim=1)
+        parts.append(tp[:, None].float())
+    parts.append(torch.softmax(out["np"], dim=1)[:, 1:2])
+    parts.append(out["hv"].float())
+    return torch.cat(parts, dim=1).permute(0, 2, 3, 1)
+
+
+def extract_patches(padded_img: torch.Tensor, coords: torch.Tensor,
+                    size: int) -> torch.Tensor:
+    """Gather [K, size, size, C] windows with top-left `coords` [K, 2]
+    from an [H, W, C] image."""
+    r = torch.arange(size, device=padded_img.device)
+    rows = (coords[:, 0, None] + r)[:, :, None]
+    cols = (coords[:, 1, None] + r)[:, None, :]
+    return padded_img[rows, cols]
+
+
+def reflect_canvas(full: torch.Tensor, src_hw: Tuple[int, int]):
+    """Mirror [H, W, C] `full` reflect-101 about the source region
+    [0, sh) x [0, sw) and build its valid mask. The mirror reads source
+    rows and columns only, so it is idempotent."""
+    sh, sw = src_hw
+    rr = torch.arange(full.shape[0], device=full.device)
+    cc = torch.arange(full.shape[1], device=full.device)
+    ridx = torch.where(rr < sh, rr, (2 * sh - 2 - rr).clamp_min(0))
+    cidx = torch.where(cc < sw, cc, (2 * sw - 2 - cc).clamp_min(0))
+    valid = (rr < sh)[:, None] & (cc < sw)[None, :]
+    return full[ridx][:, cidx], valid
+
+
+def tables_tail(full: torch.Tensor, inst_batch: torch.Tensor,
+                nr_types: Optional[int]):
+    """uint16 label compaction and the packed per-instance tables (stats
+    + boundary COO): what the host needs to build the json, in place of
+    the label map."""
+    typed = nr_types is not None
+    inst, n_labels = compact_labels_u16(inst_batch)
+    h, w = inst.shape[1], inst.shape[2]
+    tp_map = (full[..., 0].to(torch.uint8) if typed
+              else torch.zeros((h, w), dtype=torch.uint8, device=full.device))
+    t = instance_tables(inst[0].to(torch.int32), tp_map,
+                        coo_cap=min(1 << 16, h * w), nr_types=nr_types,
+                        with_sums=typed)
+    parts = [t["bbox"]]
+    if "sum_yx" in t:
+        parts += [t["sum_yx"], t["size"][:, None]]
+    if "type_hist" in t:
+        parts.append(t["type_hist"])
+    tables = {"stats": torch.cat(parts, dim=-1), "coo": t["coo"],
+              "coo_n": t["coo_n"]}
+    return inst, n_labels, tp_map, tables
+
+
+def make_tile_pipeline(model: HoVerNet, grid: Tuple[int, int],
+                       batch: int = 0):
+    """(padded_img [H, W, 3], coords [K, 2], src_hw) -> (full, inst [H, W]
+    uint16, n_labels [1], tp_map, tables) at canonical canvas size.
+
+    batch > 0 runs the forward in balanced sub-batches of at most `batch`
+    patches when the grid holds more than twice that many.
+
+    On a CUDA device the returned function records CUDA events between
+    its stages; `run.stage_ms()` gives the last call's device time per
+    stage (forward, energy, post_proc_tail, tables) in ms."""
+    win = model.cfg.patch_input_shape
+    nr_types = model.cfg.nr_types
+    r, c = grid
+
+    def forward_stitch(padded_img, coords):
+        patches = extract_patches(padded_img, coords, win)
+        k = patches.shape[0]
+        if batch and 2 * batch < k:
+            nb = -(-k // batch)
+            eff = -(-k // nb)
+            out = torch.cat([infer_output(model, patches[i:i + eff])
+                             for i in range(0, k, eff)])
+        else:
+            out = infer_output(model, patches)
+        h, w, ch = out.shape[1], out.shape[2], out.shape[3]
+        full = out.reshape(r, c, h, w, ch).permute(0, 2, 1, 3, 4)
+        return full.reshape(r * h, c * w, ch)
+
+    marks = []
+
+    def mark(device, name):
+        if device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+    @torch.no_grad()
+    def run(padded_img: torch.Tensor, coords: torch.Tensor,
+            src_hw: Tuple[int, int]):
+        dev = padded_img.device
+        marks.clear()
+        mark(dev, "start")
+        full = forward_stitch(padded_img, coords)
+        mark(dev, "forward")
+        full, valid = reflect_canvas(full, src_hw)
+        seg = full[..., 1:4] if nr_types is not None else full[..., 0:3]
+        blb, sob = energy_inputs(seg[None], valid[None])
+        mark(dev, "energy")
+        inst_b = proc_tail(blb, sob)
+        mark(dev, "post_proc_tail")
+        inst, n_labels, tp_map, tables = tables_tail(full, inst_b, nr_types)
+        mark(dev, "tables")
+        return full, inst[0], n_labels, tp_map, tables
+
+    def stage_ms() -> Dict[str, float]:
+        if not marks:
+            return {}
+        marks[-1][1].synchronize()
+        return {name: prev.elapsed_time(ev)
+                for (_, prev), (name, ev) in zip(marks, marks[1:])}
+
+    run.stage_ms = stage_ms
+    run.forward_stitch = forward_stitch
+    return run

@@ -1,0 +1,332 @@
+"""Batched post-processing on tensors: HV maps -> instance label maps.
+
+Counterpart of hover_net_tpu/ops/post_proc_device.py, in plain PyTorch.
+It is the CPU path of the port and the plain version that the CUDA tail
+kernel (ops/post_proc_cuda.py, csrc/post_proc_tail.cu) is held against:
+for the same input both give the same int32 labels, and those are the
+labels of the JAX package's exact path, `proc_np_hv_batch(exact=True)`.
+
+Semantics kept from the JAX package:
+
+- component labels are 1 + the linear index (within one map) of the
+  component's first pixel in raster order;
+- small-object removal is exact (per-component pixel counts);
+- the watershed cost word is `(level << 15) | hops`: the minimax energy
+  level along the path, and the hops since its last strict ascent,
+  saturating at 32767; INT_MAX (unreached) passes through a crossing;
+- phase 2 of the watershed breaks exact cost ties by (total hops from
+  the marker, marker label), the unique fixpoint of a relaxation along
+  the cost-attaining edges;
+- the energy is quantised over the fixed range [-1, 0] to 65536 levels,
+  rounding half to even.
+
+The CCL runs segmented min-scans along rows and columns to a fixpoint
+(as the JAX scan path does; `torch.cummin` over a (segment, value) key
+replaces `associative_scan`). The watershed relaxes 4-neighbour sweeps
+to each phase's fixpoint (as the TPU kernel does); both fixpoints are
+unique, so the sweep scheme does not change the labels. There are no
+halo windows and no seams: every map is solved whole.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import filters
+
+INT_MAX = 2**31 - 1
+HOP_BITS = 15
+HOP_MASK = (1 << HOP_BITS) - 1
+NUM_LEVELS = 1 << 16
+
+
+# ------------------------------------------------------- segmented scans
+
+def _seg_min_scan(vals: torch.Tensor, mask: torch.Tensor, dim: int,
+                  reverse: bool = False) -> torch.Tensor:
+    """Min over the contiguous run of `mask` ending at each position
+    (in scan direction) of non-negative int32 `vals`."""
+    if reverse:
+        return _seg_min_scan(vals.flip(dim), mask.flip(dim), dim).flip(dim)
+    prev = torch.cat([torch.zeros_like(mask.narrow(dim, 0, 1)),
+                      mask.narrow(dim, 0, mask.shape[dim] - 1)], dim)
+    seg = torch.cumsum((mask & ~prev).to(torch.int64), dim)
+    # segment ids grow along the scan, so a key that puts the NEGATED id
+    # in the high word makes cummin restart at every new segment
+    key = ((seg.amax() + 1 - seg) << 32) | vals.to(torch.int64)
+    out = (torch.cummin(key, dim).values & 0xFFFFFFFF).to(torch.int32)
+    return torch.where(mask, out, vals)
+
+
+def _linear_index(shape, device) -> torch.Tensor:
+    n, h, w = shape
+    idx = torch.arange(1, h * w + 1, dtype=torch.int32, device=device)
+    return idx.reshape(1, h, w).expand(n, h, w)
+
+
+def connected_components(mask: torch.Tensor) -> torch.Tensor:
+    """4-connected components of bool [N, H, W]. Returns int32 labels:
+    0 = background, else 1 + the component's minimum linear index."""
+    lab = torch.where(mask, _linear_index(mask.shape, mask.device),
+                      torch.full_like(mask, INT_MAX, dtype=torch.int32))
+    while True:
+        new = _seg_min_scan(lab, mask, 2)
+        new = _seg_min_scan(new, mask, 2, reverse=True)
+        new = _seg_min_scan(new, mask, 1)
+        new = _seg_min_scan(new, mask, 1, reverse=True)
+        if torch.equal(new, lab):
+            break
+        lab = new
+    return torch.where(mask, lab, torch.zeros_like(lab))
+
+
+def remove_small(labels: torch.Tensor, min_size: int) -> torch.Tensor:
+    """Zero every component of int32 [N, H, W] `labels` (values in
+    [0, H*W]) with fewer than `min_size` pixels."""
+    n, h, w = labels.shape
+    bins = h * w + 1
+    offs = (torch.arange(n, device=labels.device) * bins).reshape(n, 1, 1)
+    sizes = torch.bincount((labels + offs).flatten(), minlength=n * bins)
+    keep = (sizes >= min_size).reshape(n, bins)
+    keep[:, 0] = False
+    kept = torch.gather(keep, 1, labels.flatten(1).long()).reshape(n, h, w)
+    return torch.where(kept, labels, torch.zeros_like(labels))
+
+
+def fill_holes(mask: torch.Tensor) -> torch.Tensor:
+    """Fill background regions not 4-connected to the map border
+    (scipy.ndimage.binary_fill_holes)."""
+    n, h, w = mask.shape
+    bg = connected_components(~mask)
+    border = torch.zeros((h, w), dtype=torch.bool, device=mask.device)
+    border[0, :] = border[-1, :] = True
+    border[:, 0] = border[:, -1] = True
+    flat = bg.flatten(1).long()
+    touch = torch.zeros((n, h * w + 1), dtype=torch.bool, device=mask.device)
+    touch.scatter_(1, torch.where(border.flatten()[None], flat,
+                                  torch.zeros_like(flat)), True)
+    outside = torch.gather(touch, 1, flat).reshape(n, h, w)
+    return mask | (bg > 0) & ~outside
+
+
+# ------------------------------------------------------------- watershed
+
+def cross_cost(q_c: torch.Tensor, energy_sh: torch.Tensor) -> torch.Tensor:
+    """Packed cost after crossing a pixel of shifted energy `energy_sh`
+    from a neighbour of packed cost `q_c`: a strict ascent resets the
+    hops, otherwise hops + 1 (saturating; INT_MAX passes through)."""
+    lev = q_c & ~HOP_MASK
+    bump = ((q_c & HOP_MASK) != HOP_MASK).to(torch.int32)
+    return torch.where(energy_sh > lev, energy_sh, q_c + bump)
+
+
+def _shift(x: torch.Tensor, dim: int, amt: int, fill) -> torch.Tensor:
+    """out[i] = x[i - amt] along `dim` (amt = +-1); vacated cells =
+    fill."""
+    n = x.shape[dim]
+    edge = torch.full_like(x.narrow(dim, 0, 1), fill)
+    if amt > 0:
+        return torch.cat([edge, x.narrow(dim, 0, n - 1)], dim)
+    return torch.cat([x.narrow(dim, 1, n - 1), edge], dim)
+
+
+_NEIGHBOURS = ((1, 1), (1, -1), (2, 1), (2, -1))
+
+
+def watershed_flood(energy_q: torch.Tensor, markers: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Marker watershed by minimax path cost, in two phases.
+
+    energy_q: int32 [N, H, W] levels in [0, 65535]; markers: int32 labels
+    (0 = none); mask: bool flood region. Returns int32 labels (0 outside
+    the mask or where no marker reaches).
+
+    Phase 1 relaxes the packed cost to its fixpoint with synchronous
+    4-neighbour sweeps. Phase 2 relaxes (total hops, label) along the
+    edges that attain the fixed costs."""
+    seeded = (markers > 0) & mask
+    energy_sh = energy_q << HOP_BITS
+    imax = torch.full_like(energy_sh, INT_MAX)
+    cost = torch.where(seeded, energy_sh, imax)
+    while True:
+        best = cost
+        for dim, amt in _NEIGHBOURS:
+            best = torch.minimum(
+                best, cross_cost(_shift(cost, dim, amt, INT_MAX), energy_sh))
+        new = torch.where(mask, best, cost)
+        if torch.equal(new, cost):
+            break
+        cost = new
+
+    sec = torch.where(seeded, torch.zeros_like(imax), imax)
+    lab = torch.where(seeded, markers, torch.zeros_like(markers))
+    while True:
+        new_s, new_l = sec, lab
+        for dim, amt in _NEIGHBOURS:
+            q_c = _shift(cost, dim, amt, INT_MAX)
+            q_s = _shift(new_s, dim, amt, INT_MAX)
+            q_l = _shift(new_l, dim, amt, 0)
+            offer = ((q_l > 0) & (q_c != INT_MAX) & (q_s != INT_MAX) & mask
+                     & (cross_cost(q_c, energy_sh) == cost))
+            s_c = torch.where(offer, q_s + 1, imax)
+            take = offer & ((s_c < new_s) | ((s_c == new_s) & (q_l < new_l)))
+            new_s = torch.where(take, s_c, new_s)
+            new_l = torch.where(take, q_l, new_l)
+        if torch.equal(new_l, lab) and torch.equal(new_s, sec):
+            break
+        sec, lab = new_s, new_l
+    return torch.where(mask, lab, torch.zeros_like(lab))
+
+
+# ---------------------------------------------------------- full solve
+
+def energy_inputs(pred: torch.Tensor, valid_mask: Optional[torch.Tensor]
+                  = None):
+    """[N, H, W, 3] (np prob, hv x, hv y) -> (blb bool, sob float32)
+    [N, H, W]: the thresholded nuclei mask (confined to `valid_mask`)
+    and max(1 - norm(Sobel_x(h)), 1 - norm(Sobel_y(v))), with every
+    min-max taken over the valid region only."""
+    pred = pred.float()
+    blb = pred[..., 0] >= 0.5
+    if valid_mask is not None:
+        blb = blb & valid_mask
+    h_dir = filters.minmax_norm(pred[..., 1], where=valid_mask)
+    v_dir = filters.minmax_norm(pred[..., 2], where=valid_mask)
+    sobelh = 1.0 - filters.minmax_norm(filters.sobel_h(h_dir, 21),
+                                       where=valid_mask)
+    sobelv = 1.0 - filters.minmax_norm(filters.sobel_v(v_dir, 21),
+                                       where=valid_mask)
+    return blb, torch.maximum(sobelh, sobelv)
+
+
+def proc_np_hv_batch(pred: torch.Tensor,
+                     valid_mask: Optional[torch.Tensor] = None,
+                     marker_min_size: int = 10, blob_min_size: int = 10
+                     ) -> torch.Tensor:
+    """[N, H, W, 3] -> [N, H, W] int32 seed-index instance labels.
+
+    Channels: 0 nuclei prob, 1 horizontal, 2 vertical. valid_mask ([N, H,
+    W] bool) confines instances to the source region of a mirrored
+    canvas. The Sobel energy is plain PyTorch; the tail after it is
+    `post_proc_cuda.proc_tail`: the CUDA kernel for CUDA tensors, its
+    plain version for CPU tensors."""
+    from .post_proc_cuda import proc_tail
+
+    blb, sob = energy_inputs(pred, valid_mask)
+    return proc_tail(blb, sob, marker_min_size=marker_min_size,
+                     blob_min_size=blob_min_size)
+
+
+# ------------------------------------------------------- host handoff
+
+def compact_labels_u16(inst: torch.Tensor):
+    """Seed-index labels [B, H, W] int32 -> (dense ids [B, H, W] uint16,
+    0 stays background; [B] int32 distinct-label counts). The rank of
+    label L is the number of seed pixels (lab[i] == i + 1) up to L - 1."""
+    b, h, w = inst.shape
+    flat = inst.reshape(b, h * w)
+    iota1 = torch.arange(1, h * w + 1, dtype=torch.int32,
+                         device=inst.device)
+    ranks = torch.cumsum((flat == iota1).to(torch.int32), 1,
+                         dtype=torch.int32)
+    idx = (flat - 1).clamp_min(0).long()
+    out = torch.where(flat > 0, torch.gather(ranks, 1, idx),
+                      torch.zeros_like(flat))
+    return (out.clamp(0, 65535).to(torch.uint16).reshape(b, h, w),
+            ranks[:, -1].contiguous())
+
+
+# 8-neighbour directions (E, NE, N, NW, W, SW, S, SE): the bit order of
+# the native COO contour tracer (native/instance_table.cpp)
+_DIRS8 = ((0, 1), (-1, 1), (-1, 0), (-1, -1),
+          (0, -1), (1, -1), (1, 0), (1, 1))
+
+
+def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """y[r, c] = x[r + dy, c + dx], 0 outside."""
+    h, w = x.shape
+    out = torch.zeros_like(x)
+    out[max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0)] = \
+        x[max(dy, 0):h - max(-dy, 0), max(dx, 0):w - max(-dx, 0)]
+    return out
+
+
+def instance_tables(lab: torch.Tensor, tp_map: Optional[torch.Tensor] = None,
+                    coo_cap: int = 1 << 17, stat_cap: int = 4096,
+                    nr_types: Optional[int] = None, with_sums: bool = True):
+    """Fixed-capacity per-instance tables of a compacted [H, W] label
+    map (ids 0..n): what the host pulls instead of the map. Same
+    contract as the JAX function:
+
+      coo    [coo_cap, 2] int32 ((y << 16) | x, (label << 8) | mask8) of
+             the boundary pixels in raster order; slack rows (INT_MAX, 0)
+      coo_n  [] int32 boundary-pixel count
+      bbox   [stat_cap + 1, 4] int32 (rmin, rmax_excl, cmin, cmax_excl)
+      sum_yx [stat_cap + 1, 2], size [stat_cap + 1]    (with_sums)
+      type_hist [stat_cap + 1, nr_types]               (typed)
+
+    Row index = label; labels above stat_cap land in row stat_cap."""
+    if nr_types:
+        with_sums = True
+    lab = lab.to(torch.int32)
+    h, w = lab.shape
+    dev = lab.device
+    same = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    for k, (dy, dx) in enumerate(_DIRS8):
+        nb = _shift2d(lab, dy, dx)
+        same |= ((nb == lab) & (lab > 0)).to(torch.int32) << k
+    boundary = (lab > 0) & (same != 0xFF)
+
+    pos = torch.nonzero(boundary.flatten()).flatten()  # raster order
+    coo_n = pos.numel()
+    pos = pos[:coo_cap]
+    yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
+    xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
+    pyx = ((yy << 16) | xx).flatten()
+    plm = ((lab << 8) | same).flatten()
+    coo = torch.zeros((coo_cap, 2), dtype=torch.int32, device=dev)
+    coo[:, 0] = INT_MAX
+    coo[:pos.numel(), 0] = pyx[pos]
+    coo[:pos.numel(), 1] = plm[pos]
+
+    out = {"coo": coo,
+           "coo_n": torch.tensor(coo_n, dtype=torch.int32, device=dev)}
+    if with_sums:
+        flat = lab.flatten().clamp_max(stat_cap).long()
+        cols = [torch.ones_like(pyx), yy.flatten(), xx.flatten()]
+        if nr_types:
+            t = tp_map.to(torch.int32).flatten().clamp(0, nr_types - 1)
+            cols += [(t == k).to(torch.int32) for k in range(nr_types)]
+        payload = torch.stack(cols, dim=-1)
+        sums = torch.zeros((stat_cap + 1, payload.shape[1]),
+                           dtype=torch.int32, device=dev)
+        sums.index_add_(0, flat, payload)
+        present = sums[:, 0] > 0
+
+    # an instance's row/col extremes lie on its boundary, so min/max over
+    # the COO give the bbox; slack rows go to the dustbin row stat_cap
+    # as (0, 0), as in the JAX function
+    hit = torch.arange(coo_cap, device=dev) < pos.numel()
+    bl = torch.where(hit, coo[:, 1] >> 8, stat_cap).clamp_max(stat_cap).long()
+    by = torch.where(hit, coo[:, 0] >> 16, 0)
+    bx = torch.where(hit, coo[:, 0] & 0xFFFF, 0)
+    mins = torch.full((stat_cap + 1, 2), INT_MAX, dtype=torch.int32,
+                      device=dev)
+    maxs = torch.zeros((stat_cap + 1, 2), dtype=torch.int32, device=dev)
+    mins.scatter_reduce_(0, bl[:, None].expand(-1, 2),
+                         torch.stack([by, bx], -1), "amin")
+    maxs.scatter_reduce_(0, bl[:, None].expand(-1, 2),
+                         torch.stack([by + 1, bx + 1], -1), "amax")
+    if not with_sums:
+        present = mins[:, 0] != INT_MAX
+    rmin = torch.where(present, mins[:, 0], h)
+    cmin = torch.where(present, mins[:, 1], w)
+    out["bbox"] = torch.stack([rmin, maxs[:, 0], cmin, maxs[:, 1]], -1)
+    if with_sums:
+        out["sum_yx"] = sums[:, 1:3]
+        out["size"] = sums[:, 0]
+    if nr_types:
+        out["type_hist"] = sums[:, 3:]
+    return out
