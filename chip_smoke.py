@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the post-processing kernel K1 from csrc/;
+2. build: compiles the kernels K1 and K3 from csrc/, one nvcc each,
+   started together;
 3. K1 against its plain PyTorch version on the card: identical labels on
    a 1148^2 canvas of synthetic nuclei mirrored about a 1000^2 source
    (with its valid mask), a noisy map, an empty map and a 164^2 map;
@@ -20,7 +21,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    patch; finalize on real nuclei: the 1148^2 synthetic map through the
    kernel, the tables and the host finalize gives the instances of the
    plain path, exactly;
-6. prints the kernel table as one JSON line, the card line, and last
+6. K3, the fused-block encoder, against its plain PyTorch version at the
+   width-64 shapes of its four block calls (d0, d1, d2a, d2b) on a batch
+   of 32 patches: error within 3% of the output scale, median times of
+   the kernel, of the plain version and of the standard cuDNN modules;
+   two tile sizes and the 3 + 3 split of d2 give bit-identical output;
+   the fused forward agrees with the float32 standard forward on one
+   patch within 15%;
+7. the WSI path as a user runs it: WSIInferManager with HNT_FUSED_ENC=1,
+   width 64, bf16, seeded random weights from a `.tar`, a 4096^2 `.npy`
+   pseudo-slide of synthetic nuclei with a `.png` mask, chunks of 2048
+   (several, so the prefetch runs), 2048^2 post-proc tiles; the json is
+   written and a second call skips it; K3 ran 4 times per forward batch
+   and K1 once per post-proc window batch; prints the inference and
+   per-phase post-proc seconds;
+8. real nuclei through the WSI post-processing: a 4096^2 synthetic
+   prediction map of 1500 discs through the 3 phases from the device
+   buffer, from an mmap, and with K1's plain version in K1's place:
+   identical instances all three ways; K1 gives the plain labels on
+   every [4, 2048, 2048]-class window batch and on the whole map;
+   median times of both at the 2048^2 batch; against the single-shot K1
+   solve of the whole map, counts within 1% and AJI > 0.95;
+9. prints the kernel table as one JSON line (K1's times at the WSI
+   window batch), the card line, and last
    {"ok": true, "device": {...}}.
 
 Outputs go to build/chip_smoke/ in the checkout.
@@ -42,6 +65,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC_HW = 1000      # source tile of the main path
 CANVAS = 1148      # its canonical fast-mode canvas (7 x 164 + 92)
 N_NUCLEI = 1200
+SLIDE = 4096       # side of the WSI pseudo-slide
+SLIDE_NUCLEI = 1500
+K3_BATCH = 32      # patches per forward batch of the WSI path
 
 
 def log(msg):
@@ -297,40 +323,382 @@ def finalize_real_nuclei(mgr, canvas):
             raise AssertionError(f"nucleus {k} differs")
 
 
+def build_kernels():
+    """Phase 2: K1 and K3 from csrc/, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hover_net_tpu_torch.ops import fused_block_cuda, post_proc_cuda
+
+    def timed(build):
+        t0 = time.perf_counter()
+        lib = build()
+        return time.perf_counter() - t0, os.path.relpath(lib._name, ROOT)
+
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        futs = {name: ex.submit(timed, mod.build) for name, mod in (
+            ("K1", post_proc_cuda), ("K3", fused_block_cuda))}
+        for name, fut in futs.items():
+            secs, path = fut.result()
+            log(f"build: {name} built by nvcc and loaded in {secs:.3f} s "
+                f"({path})")
+
+
+def make_wsi_inputs(work):
+    """A 4096^2 `.npy` pseudo-slide of synthetic nuclei, its `.png` tissue
+    mask, and a width-64 untyped `.tar` of seeded random weights."""
+    import cv2
+
+    dirs = {k: os.path.join(work, k) for k in ("slides", "masks", "wsi_out")}
+    for d in dirs.values():
+        os.makedirs(d)
+    inst = synth_inst(SLIDE, SLIDE, SLIDE_NUCLEI, seed=7)
+    img = np.full((SLIDE, SLIDE, 3), (230, 200, 220), np.uint8)
+    img[inst > 0] = (120, 60, 150)
+    noise = np.random.default_rng(7).integers(0, 20, img.shape, np.uint8)
+    np.save(os.path.join(dirs["slides"], "slide.npy"), img - noise)
+    cv2.imwrite(os.path.join(dirs["masks"], "slide.png"),
+                np.full((SLIDE // 16, SLIDE // 16), 255, np.uint8))
+    tar = os.path.join(work, "wsi.tar")
+    write_tar(tar, None, seed=1)
+    return tar, dirs
+
+
+def check_k3(model):
+    """Phase 6: K3 against its plain version at the four block calls of
+    the width-64 encoder on a batch of 32 patches (each call fed the
+    kernel's previous output); tile and split invariance; times."""
+    import torch
+
+    from hover_net_tpu_torch.models.encoder_fused import (
+        CALLS,
+        pack_block,
+        pack_encoder,
+    )
+    from hover_net_tpu_torch.ops.fused_block_cuda import (
+        fused_block_apply,
+        fused_block_reference,
+    )
+
+    dev = next(model.parameters()).device
+    pk = pack_encoder(model)
+    tiles = [synth_image(50 + i)[y:y + 256, x:x + 256] for i in range(4)
+             for y in (0, 372, 744) for x in (0, 372, 744)][:K3_BATCH]
+    imgs = torch.from_numpy(np.stack(tiles)).to(dev)
+    with torch.no_grad():
+        x = model.conv0(imgs.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0)
+    x = x.permute(0, 2, 3, 1).contiguous()
+    inputs, ms, plain_ms, max_err = {}, 0.0, 0.0, 0.0
+    for name, _, _, kw in CALLS:
+        packed, units = pk[name]
+        inputs[name] = x
+        got = fused_block_apply(x, packed, units=units, **kw)
+        want = fused_block_reference(x, packed, **kw)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        scale = want.float().abs().max().item()
+        share = (diff > 0).float().mean().item()
+        t_k = median_ms(lambda: fused_block_apply(x, packed, units=units,
+                                                  **kw), 10)
+        t_p = median_ms(lambda: fused_block_reference(x, packed, **kw), 3)
+        log(f"K3 vs plain {name} {tuple(x.shape)} -> {tuple(got.shape)}: "
+            f"max |delta| {err:.6g} = {err / scale:.5f} of the output scale "
+            f"{scale:.6g}, {share:.4f} of elements differ; kernel "
+            f"{t_k:.3f} ms, plain {t_p:.3f} ms (median, CUDA events)")
+        if not torch.isfinite(got.float()).all() or err > 0.03 * scale:
+            raise AssertionError(f"K3 disagrees with its plain version on "
+                                 f"{name}")
+        ms, plain_ms, max_err = ms + t_k, plain_ms + t_p, max(max_err, err)
+        x = got
+    log(f"K3 encoder d0..d2 at batch {K3_BATCH}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms")
+
+    with torch.no_grad():  # the standard path: cuDNN modules, bf16
+        for name, block, src in (("d0", model.d0, "d0"),
+                                 ("d1", model.d1, "d1"),
+                                 ("d2", model.d2, "d2a")):
+            xin = inputs[src].permute(0, 3, 1, 2)
+            t_c = median_ms(lambda: block(xin), 10)
+            log(f"cuDNN standard module {name} at batch {K3_BATCH}: "
+                f"{t_c:.3f} ms (median, CUDA events)")
+
+    kws = {name: kw for name, _, _, kw in CALLS}
+
+    def call(name, x, **extra):
+        packed, units = pk[name]
+        return fused_block_apply(x, packed, units=units, **kws[name], **extra)
+
+    x0, x1 = inputs["d0"][:4].contiguous(), inputs["d1"][:4].contiguous()
+    same = (torch.equal(call("d0", x0), call("d0", x0, th=8))
+            and torch.equal(call("d1", x1), call("d1", x1, th=2)))
+    x2 = inputs["d2a"][:4].contiguous()
+    whole = fused_block_apply(x2, pack_block(model.d2, 6), count=6, stride=2)
+    chain = call("d2b", call("d2a", x2))
+    split = torch.equal(whole, chain)
+    log(f"K3 tile sizes (auto vs 8x8 at d0, auto vs 2x2 at d1) "
+        f"bit-identical: {same}; d2 as 3 + 3 units == 6 units bit for bit: "
+        f"{split}")
+    if not (same and split):
+        raise AssertionError("K3 output depends on the tiling or the split")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err}
+
+
+def check_fused_forward(model):
+    """The fused forward (K3) against the float32 standard forward (TF32
+    off) on one 256^2 patch, within the 15% bound of check_forward."""
+    import torch
+
+    from hover_net_tpu_torch.models.encoder_fused import fused_forward
+    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+
+    dev = next(model.parameters()).device
+    ref = HoVerNet(HoVerNetConfig(mode="fast", nr_types=None,
+                                  width=64)).to(dev).eval()
+    ref.load_state_dict(model.state_dict())
+    x = torch.from_numpy(synth_image(98)[:256, :256]).to(dev)[None]
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        want = ref(x.permute(0, 3, 1, 2))
+        got = fused_forward(model, x)
+    for name, w in want.items():
+        g = got[name]
+        rel = float((g - w).abs().max() / w.abs().max())
+        log(f"fused forward (K3) vs f32 standard {name} {tuple(g.shape)}: "
+            f"relative max |delta| {rel:.4f}")
+        if g.shape != (1, 2, 164, 164) or not torch.isfinite(g).all() \
+                or rel > 0.15:
+            raise AssertionError(f"fused forward head {name} is off")
+
+
+def run_wsi(mgr, dirs):
+    """Phase 7: `process_wsi_list` on the pseudo-slide, HNT_FUSED_ENC=1."""
+    from hover_net_tpu_torch.ops.fused_block_cuda import fused_block_apply
+    from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
+
+    out = os.path.join(dirs["wsi_out"], "slide.json")
+    os.environ["HNT_FUSED_ENC"] = "1"
+    try:
+        fused_block_apply.launches = 0
+        proc_tail.launches = 0
+        t0 = time.perf_counter()
+        written = mgr.process_wsi_list(dirs["slides"], dirs["wsi_out"],
+                                       input_mask_dir=dirs["masks"])
+        wall = time.perf_counter() - t0
+        k3, k1 = fused_block_apply.launches, proc_tail.launches
+    finally:
+        del os.environ["HNT_FUSED_ENC"]
+    if written != 1 or not os.path.exists(out):
+        raise AssertionError("the WSI run wrote no json")
+    with open(out) as f:
+        payload = json.load(f)
+    log(f"wsi: {SLIDE}^2 slide in {wall:.3f} s wall: {mgr.n_forward_batches} "
+        f"forward batches of <= {mgr.batch_size} patches, "
+        f"{mgr.n_window_batches} post-proc window batches, "
+        f"{len(payload['nuc'])} nuclei; K3 launches {k3}, K1 launches {k1}")
+    log("wsi seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in mgr.timings["slide"].items()))
+    if k3 != 4 * mgr.n_forward_batches or mgr.n_forward_batches == 0:
+        raise AssertionError(f"K3 ran {k3} times for "
+                             f"{mgr.n_forward_batches} forward batches")
+    if k1 != mgr.n_window_batches or k1 == 0:
+        raise AssertionError(f"K1 ran {k1} times for "
+                             f"{mgr.n_window_batches} window batches")
+    mtime = os.path.getmtime(out)
+    if mgr.process_wsi_list(dirs["slides"], dirs["wsi_out"]) != 0 \
+            or os.path.getmtime(out) != mtime:
+        raise AssertionError("the second WSI call did not skip the slide")
+    log("wsi resume: the second call skipped the written slide")
+    return k3, k1
+
+
+def fast_aji(true, pred):
+    """Aggregated Jaccard index: each true instance is paired with the
+    predicted one of highest IoU; unpaired predictions join the union."""
+    t, p = true.ravel().astype(np.int64), pred.ravel().astype(np.int64)
+    nt, npr = int(t.max()) + 1, int(p.max()) + 1
+    t_size = np.bincount(t, minlength=nt)
+    p_size = np.bincount(p, minlength=npr)
+    both = (t > 0) & (p > 0)
+    key, inter = np.unique(t[both] * npr + p[both], return_counts=True)
+    ti, pj = key // npr, key % npr
+    union = t_size[ti] + p_size[pj] - inter
+    order = np.lexsort((-inter / union, ti))
+    best = order[np.r_[True, ti[order][1:] != ti[order][:-1]]]
+    paired = np.zeros(nt, bool)
+    paired[ti[best]] = True
+    used = np.zeros(npr, bool)
+    used[pj[best]] = True
+    used[0] = True
+    lone = (t_size > 0) & ~paired
+    lone[0] = False
+    total_u = union[best].sum() + t_size[lone].sum() + p_size[~used].sum()
+    return inter[best].sum() / total_u
+
+
+def wsi_real_nuclei(mgr, work):
+    """Phase 8: a 4096^2 synthetic prediction map through the 3 phases
+    three times: K1 from the device buffer, K1 from an mmap, and K1's
+    plain version in its place (each window batch also runs K1, which
+    must give the same labels). The three instance maps must be
+    identical. Returns K1's max |label difference| and its times against
+    plain at the [4, 2048, 2048] window batches."""
+    import torch
+
+    from hover_net_tpu_torch.infer.wsi import scatter_patches
+    from hover_net_tpu_torch.ops.post_proc_cuda import (
+        proc_tail,
+        proc_tail_reference,
+    )
+    from hover_net_tpu_torch.ops.post_proc_device import (
+        compact_labels_u16,
+        energy_inputs,
+    )
+
+    pred = synth_pred(synth_inst(SLIDE, SLIDE, SLIDE_NUCLEI, seed=8)
+                      ).astype(np.float16)
+    out_sz = mgr.cfg.patch_output_shape
+    grid = np.arange(0, SLIDE, out_sz)
+    padded = np.zeros((grid[-1] + out_sz,) * 2 + (3,), np.float16)
+    padded[:SLIDE, :SLIDE] = pred
+    coords = np.array([(y, x) for y in grid for x in grid], np.int32)
+    batches = []  # (blb, sob) of the first window batch of the plain run
+    max_err = 0
+
+    def plain_post_proc(seg, valid):
+        nonlocal max_err
+        blb, sob = energy_inputs(seg, valid)
+        want = proc_tail_reference(blb, sob)
+        got = proc_tail(blb, sob)
+        n_diff = int((got != want).sum())
+        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+        log(f"K1 vs plain on WSI window batch {tuple(blb.shape)}: "
+            f"{n_diff} labels differ")
+        if n_diff:
+            raise AssertionError("K1 disagrees with its plain version on a "
+                                 "WSI window batch")
+        if not batches:
+            batches.append((blb, sob))
+        return compact_labels_u16(want)
+
+    results = {}
+    for mode in ("device", "mmap", "plain"):
+        mgr.wsi_proc_shape = np.array((SLIDE, SLIDE))
+        mgr.wsi_mask = np.ones((SLIDE // 16, SLIDE // 16), np.uint8)
+        mgr._mask_integral = None
+        mgr.wsi_inst_info = {}
+        mgr.wsi_inst_map = np.zeros((SLIDE, SLIDE), np.int32)
+        if mode != "mmap":  # as the chunk loop scatters patch outputs
+            mgr._alloc_pred_dev(3)
+            for i in range(0, len(coords), K3_BATCH):
+                c = coords[i:i + K3_BATCH]
+                outs = torch.from_numpy(np.stack(
+                    [padded[y:y + out_sz, x:x + out_sz] for y, x in c]))
+                scatter_patches(mgr._pred_dev, outs.to(mgr.device), c)
+        else:
+            mgr._pred_dev, mgr._pred_dev_mode = None, False
+            mgr._pred_map_path = os.path.join(work, "pred_map.npy")
+            np.save(mgr._pred_map_path, pred)
+        if mode == "plain":  # the plain version in K1's place
+            mgr._post_proc = plain_post_proc
+        secs = mgr.post_process_phases()
+        results[mode] = (mgr.wsi_inst_map.copy(), {
+            k: v["centroid"].tolist() for k, v in mgr.wsi_inst_info.items()})
+        log(f"wsi post-proc of {SLIDE}^2 real nuclei ({mode}): "
+            f"{len(results[mode][1])} nuclei, {mgr.n_window_batches} window "
+            "batches; phase seconds " + ", ".join(f"{v:.3f}" for v in secs))
+    del mgr._post_proc
+    mgr._pred_dev = None
+    map_d, info_d = results["device"]
+    for mode in ("mmap", "plain"):
+        if not np.array_equal(results[mode][0], map_d) \
+                or results[mode][1] != info_d:
+            raise AssertionError(f"the {mode} run's instances differ from "
+                                 "the device-buffer run's")
+    log("wsi: device buffer, mmap and plain K1 give identical instances")
+
+    blb, sob = batches[0]  # the full 2048^2 tiles of phase 1
+    ms = median_ms(lambda: proc_tail(blb, sob), 10)
+    plain_ms = median_ms(lambda: proc_tail_reference(blb, sob), 3)
+    log(f"K1 time at WSI window batch {tuple(blb.shape)}: kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events)")
+
+    # the stitching algorithm against the single-shot solve of the whole
+    # map: the fixing rule of phases 2-3 may drop a re-predicted nucleus
+    # that touches a kept boundary straddler (the JAX manager does the
+    # same, tests/test_torch_wsi.py), so counts agree to 1%, not exactly
+    blb, sob = energy_inputs(torch.from_numpy(pred.astype(np.float32))[None]
+                             .to(mgr.device))
+    whole = proc_tail(blb, sob)
+    if not torch.equal(whole, proc_tail_reference(blb, sob)):
+        raise AssertionError("K1 disagrees with its plain version on the "
+                             "whole map")
+    whole = whole[0].cpu().numpy()
+    n_whole = len(np.unique(whole)) - 1
+    n_tiled = len(np.unique(map_d)) - 1
+    aji = fast_aji(whole, map_d)
+    log(f"wsi stitched vs single-shot K1 at {SLIDE}^2: {n_tiled} vs "
+        f"{n_whole} instances, AJI {aji:.5f}")
+    if abs(n_tiled - n_whole) > 0.01 * n_whole or aji <= 0.95 \
+            or n_whole < 1000:
+        raise AssertionError("the stitched WSI instances are off")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err}
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
-    from hover_net_tpu_torch.ops import post_proc_cuda
-
     dev = torch.device("cuda")
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} ({card}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    post_proc_cuda.build()
-    log(f"build: K1 built and loaded in {time.perf_counter() - t0:.3f} s")
+    build_kernels()
 
     k1 = check_kernel(dev)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    launches, mgr = run_slice(work)
+    _, mgr = run_slice(work)
     check_forward(mgr)
     finalize_real_nuclei(mgr, k1["canvas"])
+    del mgr, k1["canvas"]
+    torch.cuda.empty_cache()
+
+    from hover_net_tpu_torch.infer.wsi import WSIInferManager
+
+    tar, dirs = make_wsi_inputs(work)
+    wsi_mgr = WSIInferManager(
+        model_path=tar, mode="fast", nr_types=None, width=64,
+        batch_size=K3_BATCH, device="cuda", chunk_shape=2048,
+        tile_shape=2048, ambiguous_size=128, proc_mag=40,
+        cache_path=os.path.join(work, "wsi_cache"))
+    k3 = check_k3(wsi_mgr.model)
+    check_fused_forward(wsi_mgr.model)
+    torch.cuda.empty_cache()
+    k3_launches, k1_launches = run_wsi(wsi_mgr, dirs)
+    k1_wsi = wsi_real_nuclei(wsi_mgr, work)
 
     kernels = [{
         "name": "post_proc_tail",
         "route": "cuda",
         "source": "hover_net_tpu_torch/csrc/post_proc_tail.cu",
         "replaces": "hover_net_tpu/ops/post_proc_pallas.py:272",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
+        "launches": k1_launches,
+        "max_abs_err": max(k1["max_abs_err"], k1_wsi["max_abs_err"]),
+        "ms": k1_wsi["ms"],
+        "plain_ms": k1_wsi["plain_ms"],
+    }, {
+        "name": "fused_block",
+        "route": "cuda",
+        "source": "hover_net_tpu_torch/csrc/fused_block.cu",
+        "replaces": "hover_net_tpu/models/encoder_pallas.py:220",
+        "launches": k3_launches,
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,4 @@
-"""Inference CLI of the port: the `tile` subcommand.
+"""Inference CLI of the port: the `tile` and `wsi` subcommands.
 
 Counterpart of hover_net_tpu/cli/run_infer.py, with the same flags plus
 `--device` (default `cuda`; without a GPU that raises, it never falls
@@ -10,7 +10,13 @@ a JAX `.msgpack` with hover_net_tpu.models.checkpoints.save_torch_tar.
       --type_info_path type_info.json \
       tile --input_dir in/ --output_dir out/ --save_qupath
 
-The `wsi` subcommand, `--host_post_proc`, `--profile_dir` and
+  python -m hover_net_tpu_torch.cli.run_infer \
+      --model_path ckpt.tar --model_mode fast \
+      wsi --input_dir slides/ --output_dir out/ --proc_mag 40
+
+With HNT_FUSED_ENC=1 in the environment, a fast-mode bf16 model whose
+4 * width is a multiple of 128 runs its encoder d0..d2 as the fused-block
+CUDA kernel on a GPU. `--host_post_proc`, `--profile_dir` and
 `--n_devices` above 1 are not ported yet and exit with an error.
 """
 
@@ -58,14 +64,30 @@ def build_parser():
     tile.add_argument("--save_format", default="all", choices=["all", "json"],
                       help="'all' writes mat/overlay/json; 'json' writes "
                            "only the per-nucleus json (+qupath)")
-    sub.add_parser("wsi", help="not ported yet")
+    wsi = sub.add_parser("wsi")
+    wsi.add_argument("--input_dir", required=True)
+    wsi.add_argument("--output_dir", required=True)
+    wsi.add_argument("--input_mask_dir", default=None)
+    wsi.add_argument("--cache_path", default="cache")
+    wsi.add_argument("--proc_mag", type=int, default=40)
+    wsi.add_argument("--ambiguous_size", type=int, default=128)
+    wsi.add_argument("--chunk_shape", type=int, default=10000)
+    wsi.add_argument("--tile_shape", type=int, default=2048)
+    wsi.add_argument("--save_thumb", action="store_true")
+    wsi.add_argument("--save_mask", action="store_true")
+    wsi.add_argument("--pred_map_f32", action="store_true",
+                     help="stitched prediction map in float32 (the "
+                          "reference's dtype) instead of float16")
+    wsi.add_argument("--hbm_pred_budget_gb", type=float, default=4.0,
+                     help="keep the stitched prediction map in device "
+                          "memory when it fits this budget; 0 forces the "
+                          "mmap path")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     unported = [name for name, on in (
-        ("the wsi subcommand", args.command == "wsi"),
         ("--host_post_proc", args.host_post_proc),
         ("--profile_dir", args.profile_dir is not None),
         ("--n_devices > 1", args.n_devices > 1)) if on]
@@ -77,17 +99,31 @@ def main(argv=None):
         format="|%(asctime)s.%(msecs)03d| [%(levelname)s] %(message)s",
         datefmt="%Y-%m-%d|%H:%M:%S")
 
-    from ..infer.tile import TileInferManager
-
-    mgr = TileInferManager(
+    common = dict(
         model_path=args.model_path, mode=args.model_mode,
         nr_types=args.nr_types if args.nr_types > 0 else None,
         type_info_path=args.type_info_path, batch_size=args.batch_size,
         width=args.width, device=args.device)
-    mgr.process_file_list(
-        args.input_dir, args.output_dir, draw_dot=args.draw_dot,
-        save_qupath=args.save_qupath, save_raw_map=args.save_raw_map,
-        save_format=args.save_format)
+    if args.command == "tile":
+        from ..infer.tile import TileInferManager
+
+        mgr = TileInferManager(**common)
+        mgr.process_file_list(
+            args.input_dir, args.output_dir, draw_dot=args.draw_dot,
+            save_qupath=args.save_qupath, save_raw_map=args.save_raw_map,
+            save_format=args.save_format)
+        return
+    from ..infer.wsi import WSIInferManager
+
+    mgr = WSIInferManager(
+        chunk_shape=args.chunk_shape, tile_shape=args.tile_shape,
+        ambiguous_size=args.ambiguous_size, proc_mag=args.proc_mag,
+        cache_path=args.cache_path,
+        pred_map_dtype="float32" if args.pred_map_f32 else "float16",
+        hbm_pred_budget=int(args.hbm_pred_budget_gb * 2**30), **common)
+    mgr.process_wsi_list(
+        args.input_dir, args.output_dir, input_mask_dir=args.input_mask_dir,
+        save_thumb=args.save_thumb, save_mask=args.save_mask)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""Tile-inference building blocks on tensors.
+"""Inference building blocks on tensors (tile and WSI paths).
 
 Counterpart of hover_net_tpu/infer/steps.py. The output contract is the
 JAX package's: a per-pixel channel concat of [tp argmax (typed only), np
-foreground prob, hv_x, hv_y] in NHWC, float32.
+foreground prob, hv_x, hv_y] in NHWC, float32. `infer_output` runs the
+encoder as the fused-block CUDA kernel K3 behind `_use_fused_enc`.
 
 `make_tile_pipeline` is the counterpart of the JAX `run_dynamic` program:
 padded image -> patch gather -> forward -> stitch -> reflect-101 mirror
@@ -12,10 +13,12 @@ kernel on a GPU) -> uint16 label compaction -> per-instance tables.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..models.encoder_fused import fused_forward
 from ..models.hovernet import HoVerNet
 from ..ops.post_proc_cuda import proc_tail
 from ..ops.post_proc_device import (
@@ -25,10 +28,25 @@ from ..ops.post_proc_device import (
 )
 
 
+def _use_fused_enc(model: HoVerNet, device) -> bool:
+    """Gate of the fused-block encoder (kernel K3, models/encoder_fused.py):
+    HNT_FUSED_ENC set, fast mode, 4 * width a multiple of 128, a bf16
+    body, and a CUDA device. Opt-in, as in the JAX package; on the CPU
+    the fused path runs only when called directly."""
+    cfg = model.cfg
+    return (bool(os.environ.get("HNT_FUSED_ENC")) and cfg.mode == "fast"
+            and (4 * cfg.width) % 128 == 0 and cfg.dtype == torch.bfloat16
+            and torch.device(device).type == "cuda")
+
+
 def infer_output(model: HoVerNet, imgs: torch.Tensor) -> torch.Tensor:
     """NHWC images [N, H, W, 3] (uint8 or float, 0..255) -> NHWC float32
-    [N, h, w, C] head activations."""
-    out = model(imgs.permute(0, 3, 1, 2))
+    [N, h, w, C] head activations. Behind `_use_fused_enc` the encoder
+    runs as kernel K3."""
+    if _use_fused_enc(model, imgs.device):
+        out = fused_forward(model, imgs)
+    else:
+        out = model(imgs.permute(0, 3, 1, 2))
     parts = []
     if "tp" in out:
         tp = torch.argmax(torch.softmax(out["tp"], dim=1), dim=1)

@@ -1,0 +1,712 @@
+"""WSI inference on one CUDA device: a slide -> per-nucleus json.
+
+Counterpart of hover_net_tpu/infer/wsi.py on a single device, with its
+structure:
+
+- chunked inference: a prefetch thread reads chunk k+2 of the slide and
+  pushes it to the device while the main thread gathers and forwards the
+  masked patches of chunk k in batches (`_run_chunk`); outputs are cast
+  to the pred map's dtype (float16 by default) on the device;
+- the stitched prediction map stays on the device when it fits
+  `hbm_pred_budget` (`_alloc_pred_dev`, `scatter_patches`); otherwise a
+  writer thread pulls the outputs into an `.npy` mmap;
+- tissue selection by a summed-area table of the mask;
+- the 3-phase boundary-consistent post-processing (full tiles, boundary
+  strips, 4-corner crosses) over canonical windows, batched on the
+  device: out-of-slide zeroing, the valid mask from the boxes, the Sobel
+  energy, the post-processing tail (kernel K1 on a GPU) and uint16 label
+  compaction; a staging thread reads mmap windows ahead, `inflight`
+  batches stay queued, a pool extracts instances, and the callbacks that
+  renumber and stitch run in order;
+- resume: a slide whose json exists is skipped.
+
+Differences from the JAX manager, all of them deliberate:
+
+- one device only: the mesh and striped multi-device branches are not
+  ported (the CLI refuses `--n_devices` > 1);
+- K1 solves every window whole, so there is no seam guard;
+- no post-proc prewarm: PyTorch compiles no programs ahead;
+- eager PyTorch has no compiled batch shape to keep, so the last forward
+  batch of a chunk and the last window batch of a shape class run at
+  their own size instead of being padded. `scatter_patches` keeps the
+  clamp of `lax.dynamic_update_slice` all the same.
+"""
+
+from __future__ import annotations
+
+import glob
+import logging
+import os
+import pathlib
+import queue
+import shutil
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict
+
+import cv2
+import numpy as np
+import torch
+
+from hover_net_tpu.data.tiling import (
+    select_patches_in_chunk,
+    wsi_chunk_patch_grids,
+    wsi_tile_grids,
+)
+from hover_net_tpu.infer.wsi_handler import get_file_handler
+from hover_net_tpu.metrics import remap_label
+from hover_net_tpu.ops import cc_np
+from hover_net_tpu.ops.post_proc_host import extract_instance_info
+
+from ..ops.post_proc_device import compact_labels_u16, proc_np_hv_batch
+from . import base
+from .steps import extract_patches, infer_output
+
+logger = logging.getLogger("hover_net_tpu_torch")
+
+
+def _warn_u16_overflow(n_labels: torch.Tensor):
+    """Loud signal if the uint16 window compaction clipped: every instance
+    ranked >= 65535 was aliased into one label."""
+    n = int(n_labels.max())
+    if n > 65535:
+        logger.warning(
+            "uint16 window compaction overflow: %d instances in one "
+            "post-proc window (> 65535) — ids were aliased; rerun with a "
+            "smaller tile_shape or inspect the prediction", n)
+
+
+def _simple_tissue_mask(handler):
+    """Otsu at 1.25x + morphology, as the JAX manager builds it."""
+    thumb = handler.get_full_img(read_mag=1.25)
+    gray = cv2.cvtColor(thumb, cv2.COLOR_RGB2GRAY)
+    _, mask = cv2.threshold(gray, 0, 255, cv2.THRESH_OTSU)
+    mask = cc_np.remove_small_objects(mask == 0, min_size=16 * 16,
+                                      connectivity=2)
+    mask = cc_np.remove_small_holes(mask, area_threshold=128 * 128)
+    return cc_np.binary_dilation_disk(mask, 16)
+
+
+def _clamp_starts(coords: np.ndarray, dims, size) -> np.ndarray:
+    """Start indices clamped into [0, dim - size] per axis, as
+    `lax.dynamic_slice` / `dynamic_update_slice` clamp them."""
+    hi = np.asarray(dims, np.int64) - np.asarray(size, np.int64)
+    return np.clip(np.asarray(coords, np.int64), 0, np.maximum(hi, 0))
+
+
+def scatter_patches(buf: torch.Tensor, outs: torch.Tensor,
+                    coords: np.ndarray) -> None:
+    """Write patch outputs [K, h, w, C] into the pred buffer [H, W, C] at
+    top-lefts `coords` [K, 2], in order and in place. Starts clamp as in
+    the JAX scatter (`dynamic_update_slice`): a coordinate past the
+    buffer (the JAX "dustbin") lands in its bottom-right slack, which no
+    window of the slide reads."""
+    h, w = outs.shape[1], outs.shape[2]
+    starts = _clamp_starts(coords, buf.shape[:2], (h, w))
+    outs = outs.to(buf.dtype)
+    for k, (y, x) in enumerate(starts):
+        buf[y:y + h, x:x + w] = outs[k]
+
+
+def _to_host_async(t: torch.Tensor):
+    """Start the device->host copy of `t`: (host tensor, event to wait on
+    before reading it, or None on the CPU)."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def _host(pulled) -> np.ndarray:
+    host, ev = pulled
+    if ev is not None:
+        ev.synchronize()
+    return host.numpy()
+
+
+class WSIInferManager(base.InferManagerBase):
+    # class-level defaults, so that instances built with __new__ (the
+    # tests drive single methods) run on the CPU with the mmap pred map
+    device = torch.device("cpu")
+    _mask_integral = None
+    _pred_dev_mode = False
+    _pred_dev = None
+    n_forward_batches = 0
+    n_window_batches = 0
+
+    def __init__(self, *args, chunk_shape=10000, tile_shape=2048,
+                 ambiguous_size=128, proc_mag=40, cache_path="cache",
+                 pred_map_dtype="float16", hbm_pred_budget: int = 4 << 30,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.chunk_shape = int(chunk_shape)
+        self.tile_shape = int(tile_shape)
+        self.ambiguous_size = int(ambiguous_size)
+        self.proc_mag = proc_mag
+        self.cache_path = cache_path
+        # float16 (default) halves the pred map, its pulls and its disk
+        # traffic; "float32" is the reference's dtype
+        self.pred_map_dtype = np.dtype(pred_map_dtype)
+        # the stitched prediction map stays on the device when it fits
+        # this budget: no device->host pull of the outputs, no host->
+        # device push of the post-proc windows
+        self.hbm_pred_budget = int(hbm_pred_budget)
+        self._pred_dev = None
+        self._pred_dev_mode = False
+        self._mask_integral = None
+        # per slide: seconds of inference, of each post-proc phase, of
+        # the json; and the forward and window batches of the last slide
+        self.timings: Dict[str, Dict[str, float]] = {}
+        self.n_forward_batches = 0
+        self.n_window_batches = 0
+
+    # ------------------------------------------------------- device fns
+
+    def _forward_batch(self, chunk_img: torch.Tensor, coords: torch.Tensor
+                       ) -> torch.Tensor:
+        """Gather + forward one batch of patches of a chunk on the device;
+        the outputs are cast to the pred map's dtype there."""
+        out_dtype = (torch.float16 if self.pred_map_dtype == np.float16
+                     else torch.float32)
+        patches = extract_patches(chunk_img, coords,
+                                  self.cfg.patch_input_shape)
+        with torch.no_grad():
+            return infer_output(self.model, patches).to(out_dtype)
+
+    def _run_chunk(self, chunk_img, patch_coords: np.ndarray,
+                   out_coords: np.ndarray | None = None):
+        """Forward all selected patches of one chunk in batches.
+
+        patch_coords: [K, 2] input top-lefts relative to the chunk.
+        Default: returns a list of (host tensor, event) pulls started
+        here, which the writer thread completes. Device-resident mode
+        (out_coords given): the outputs scatter into the device pred
+        buffer instead, and nothing crosses to the host."""
+        bs = self.batch_size
+        dev_img = self._push_chunk(chunk_img)
+        coords = torch.from_numpy(patch_coords.astype(np.int64)).to(
+            self.device)
+        outs = []
+        for i in range(0, len(patch_coords), bs):
+            out = self._forward_batch(dev_img, coords[i:i + bs])
+            self.n_forward_batches += 1
+            if out_coords is not None:
+                scatter_patches(self._pred_dev, out, out_coords[i:i + bs])
+            else:
+                outs.append(_to_host_async(out))
+        return outs
+
+    def _push_chunk(self, chunk_img) -> torch.Tensor:
+        """Host->device push of one chunk image (no-op on a tensor: the
+        prefetch thread pushes ahead of the dispatch loop)."""
+        if isinstance(chunk_img, torch.Tensor):
+            return chunk_img
+        return torch.from_numpy(np.ascontiguousarray(chunk_img)).to(
+            self.device)
+
+    def _post_proc(self, seg: torch.Tensor, valid: torch.Tensor):
+        """[B, H, W, 3] windows + [B, H, W] valid masks -> (uint16
+        labels, [B] label counts): Sobel energy, the post-processing tail
+        (K1 on a GPU), label compaction."""
+        return compact_labels_u16(proc_np_hv_batch(seg, valid))
+
+    def _pp_windows(self, shape, starts, boxes):
+        """Post-proc of a batch of canonical windows sliced from the
+        device pred buffer. starts [B, 2] window anchors, boxes [B, 4]
+        (y0, y1, x0, x1) valid boxes in window coordinates. Returns
+        (inst uint16, n_labels, tp uint8 or None)."""
+        hc, wc = shape
+        buf = self._pred_dev
+        dev = buf.device
+        starts = _clamp_starts(starts, buf.shape[:2], shape)
+        wins = torch.stack([buf[y:y + hc, x:x + wc] for y, x in starts])
+        wins = wins.float()
+        ri = torch.arange(hc, device=dev)[None, :, None]
+        ci = torch.arange(wc, device=dev)[None, None, :]
+        s = torch.as_tensor(starts, device=dev)[:, :, None, None]
+        img_h, img_w = (int(v) for v in self.wsi_proc_shape)
+        # zero the outside-slide part of each window (the buffer's slack
+        # may hold anything), as the mmap staging zero-fills it
+        inimg = (ri + s[:, 0] < img_h) & (ci + s[:, 1] < img_w)
+        wins = torch.where(inimg[..., None], wins, torch.zeros((), device=dev))
+        typed = self.nr_types is not None
+        seg = wins[..., 1:4] if typed else wins[..., 0:3]
+        b = torch.as_tensor(np.asarray(boxes), device=dev)[:, :, None, None]
+        valid = ((ri >= b[:, 0]) & (ri < b[:, 1])
+                 & (ci >= b[:, 2]) & (ci < b[:, 3]))
+        inst, nlab = self._post_proc(seg, valid)
+        tp = wins[..., 0].to(torch.uint8) if typed else None
+        return inst, nlab, tp
+
+    def _alloc_pred_dev(self, out_ch: int):
+        """The device-resident pred buffer: one zeroed (Bh, Bw, C) block,
+        256-aligned with one patch output of slack per axis (covers every
+        canonical window class and edge patch overruns)."""
+        proc_shape = tuple(int(v) for v in self.wsi_proc_shape)
+        out_sz = self.cfg.patch_output_shape
+        bh = -(-(proc_shape[0] + out_sz) // 256) * 256
+        bw = -(-(proc_shape[1] + out_sz) // 256) * 256
+        dt = (torch.float16 if self.pred_map_dtype == np.float16
+              else torch.float32)
+        self._pred_dev = torch.zeros((bh, bw, out_ch), dtype=dt,
+                                     device=self.device)
+        self._pred_dev_mode = True
+
+    def _get_raw_prediction(self, chunk_info, patch_info):
+        """Chunk loop: read region -> device forward -> the writer thread
+        assembles the pred map mmap; in device-resident mode the outputs
+        scatter into the device buffer instead."""
+        write_q: "queue.Queue" = queue.Queue(maxsize=4)
+
+        def writer():
+            if self._pred_dev_mode:
+                return
+            pred_map = np.load(self._pred_map_path, mmap_mode="r+")
+            while True:
+                item = write_q.get()
+                if item is None:
+                    break
+                _, pulls, coords = item
+                outputs = np.concatenate([_host(p) for p in pulls], axis=0)
+                ph, pw = outputs.shape[1:3]
+                for k, (y, x) in enumerate(coords):
+                    pred_map[y:y + ph, x:x + pw] = outputs[k]
+                del outputs
+            pred_map.flush()
+
+        wt = threading.Thread(target=writer, daemon=True)
+        wt.start()
+
+        def read_chunk(idx):
+            """Host side of one chunk on the prefetch thread: mask-select
+            the patches, read the region, push it to the device."""
+            cinfo = chunk_info[idx]
+            sub = select_patches_in_chunk(
+                patch_info, cinfo, (self.cfg.patch_input_shape,) * 2)
+            sub = self._select_masked_patches(sub)
+            if sub.shape[0] == 0:
+                return None
+            tl = cinfo[0, 0]
+            read_size = (cinfo[0, 1] - cinfo[0, 0])[::-1]  # (w, h)
+            chunk_img = self.wsi_handler.read_region(tl[::-1], read_size)
+            rel_in_tl = (sub[:, 0, 0] - tl).astype(np.int32)
+            return tl, self._push_chunk(chunk_img), rel_in_tl, sub[:, 1, 0]
+
+        n_chunks = chunk_info.shape[0]
+        try:
+            with ThreadPoolExecutor(max_workers=1) as ex:
+                futs = deque(ex.submit(read_chunk, i)
+                             for i in range(min(2, n_chunks)))
+                for idx in range(n_chunks):
+                    item = futs.popleft().result()
+                    if idx + 2 < n_chunks:
+                        futs.append(ex.submit(read_chunk, idx + 2))
+                    if item is None:
+                        continue
+                    tl, chunk_img, rel_in_tl, out_coords = item
+                    if self._pred_dev_mode:
+                        self._run_chunk(chunk_img, rel_in_tl, out_coords)
+                    else:
+                        write_q.put((tl, self._run_chunk(chunk_img,
+                                                         rel_in_tl),
+                                     out_coords))
+                    logger.info("chunk %d/%d: %d patches", idx + 1,
+                                n_chunks, rel_in_tl.shape[0])
+        finally:
+            write_q.put(None)
+            wt.join()
+        if self._pred_dev_mode and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _boxes_touch_tissue(self, scaled_boxes):
+        """Tissue-overlap test of many boxes through a summed-area table
+        of the mask (one cumsum per slide, four lookups per box)."""
+        mh, mw = self.wsi_mask.shape[:2]
+        if self._mask_integral is None or \
+                self._mask_integral.shape != (mh + 1, mw + 1):
+            ii = np.zeros((mh + 1, mw + 1), np.int64)
+            np.cumsum((self.wsi_mask > 0).cumsum(axis=0), axis=1,
+                      out=ii[1:, 1:])
+            self._mask_integral = ii
+        ii = self._mask_integral
+        r0 = np.clip(scaled_boxes[:, 0, 0], 0, mh)
+        r1 = np.clip(scaled_boxes[:, 1, 0], 0, mh)
+        c0 = np.clip(scaled_boxes[:, 0, 1], 0, mw)
+        c1 = np.clip(scaled_boxes[:, 1, 1], 0, mw)
+        area = ii[r1, c1] - ii[r0, c1] - ii[r1, c0] + ii[r0, c0]
+        return area > 0
+
+    def _select_masked_patches(self, patch_info, box_level: int = 1):
+        """Keep patches whose output box overlaps tissue."""
+        if patch_info.shape[0] == 0:
+            return patch_info
+        ratio = self.wsi_mask.shape[0] / self.wsi_proc_shape[0]
+        boxes = np.rint(patch_info[:, box_level] * ratio).astype(np.int64)
+        return patch_info[self._boxes_touch_tissue(boxes)]
+
+    def _select_masked_boxes(self, boxes):
+        if boxes.shape[0] == 0:
+            return boxes
+        ratio = self.wsi_mask.shape[0] / self.wsi_proc_shape[0]
+        scaled = np.rint(boxes * ratio).astype(np.int64)
+        return boxes[self._boxes_touch_tissue(scaled)]
+
+    # ------------------------------------------------ tile post-process
+
+    def _canonical_window(self, tl, br):
+        """Round the read window up to a shape class and anchor it inside
+        the slide: ((wy, wx), (Hc, Wc))."""
+        h, w = int(br[0] - tl[0]), int(br[1] - tl[1])
+        img_h, img_w = (int(v) for v in self.wsi_proc_shape)
+        hc = min(-(-h // 256) * 256, -(-img_h // 256) * 256)
+        wc = min(-(-w // 256) * 256, -(-img_w // 256) * 256)
+        wy = max(min(int(tl[0]), img_h - hc), 0)
+        wx = max(min(int(tl[1]), img_w - wc), 0)
+        return (wy, wx), (hc, wc)
+
+    def _window_geom(self, tl, br):
+        """Canonical window anchor and shape, its in-slide read size, and
+        the requested box clipped to the in-slide part of the window."""
+        (wy, wx), (hc, wc) = self._canonical_window(tl, br)
+        img_h, img_w = (int(v) for v in self.wsi_proc_shape)
+        read_h, read_w = min(hc, img_h - wy), min(wc, img_w - wx)
+        y0 = min(max(int(tl[0]) - wy, 0), read_h)
+        y1 = min(max(int(br[0]) - wy, 0), read_h)
+        x0 = min(max(int(tl[1]) - wx, 0), read_w)
+        x1 = min(max(int(br[1]) - wx, 0), read_w)
+        return (wy, wx), (hc, wc), (read_h, read_w), (y0, y1, x0, x1)
+
+    def _read_window(self, pred_map, tl, br):
+        """One canonical window of the mmap (zero outside the slide) and
+        its valid mask."""
+        (wy, wx), (hc, wc), (read_h, read_w), geom = self._window_geom(tl, br)
+        window = np.zeros((hc, wc, pred_map.shape[-1]), pred_map.dtype)
+        window[:read_h, :read_w] = pred_map[wy:wy + read_h, wx:wx + read_w]
+        valid = np.zeros((hc, wc), bool)
+        y0, y1, x0, x1 = geom
+        valid[y0:y1, x0:x1] = True
+        return window, valid, geom
+
+    def _dispatch_post_processing(self, boxes, callback, desc,
+                                  batch: int = 4, inflight: int = 2):
+        """Batched, pipelined device post-processing of `boxes`.
+
+        Boxes are grouped by canonical window shape and sent to the device
+        `batch` windows at a time, with `inflight` batches queued ahead of
+        the host. The extraction of instances runs on a pool; the
+        callbacks run in order, one batch at a time. Returns the number
+        of window batches."""
+        start = time.perf_counter()
+        pred_map = (None if self._pred_dev_mode
+                    else np.load(self._pred_map_path, mmap_mode="r"))
+        groups: Dict[tuple, list] = {}
+        for idx in range(boxes.shape[0]):
+            tl, br = boxes[idx]
+            in_tl = np.maximum(tl, 0)
+            in_br = np.minimum(br, np.asarray(self.wsi_proc_shape))
+            if (in_br - in_tl).min() <= 0:
+                # no in-slide pixels: the grid's floor+1 step count emits a
+                # zero-area trailing row/column on exact tile multiples
+                continue
+            _, shape = self._canonical_window(tl, br)
+            groups.setdefault(shape, []).append(idx)
+        typed = self.nr_types is not None
+        batches = [(shape, idxs[i:i + batch])
+                   for shape, idxs in groups.items()
+                   for i in range(0, len(idxs), batch)]
+
+        def finalize(item):
+            idxs, inst_pull, nlab, geoms, tps = item
+            _warn_u16_overflow(nlab)
+            inst_host = _host(inst_pull)
+            if tps is not None and not isinstance(tps, list):
+                tp_host = _host(tps)
+                tps = [tp_host[k, g[0]:g[1], g[2]:g[3]].astype(np.int32)
+                       for k, g in enumerate(geoms)]
+
+            def extract_one(k):
+                y0, y1, x0, x1 = geoms[k]
+                inst = remap_label(
+                    inst_host[k, y0:y1, x0:x1].astype(np.int32))
+                return extract_instance_info(inst, tps[k])
+
+            if ext_pool is not None and len(idxs) > 1:
+                extracted = list(ext_pool.map(extract_one,
+                                              range(len(idxs))))
+            else:
+                extracted = [extract_one(k) for k in range(len(idxs))]
+            for k, idx in enumerate(idxs):
+                inst, inst_info = extracted[k]
+                tl, br = boxes[idx]
+                callback(inst, inst_info, tl, br)
+
+        def stage_mmap(sub):
+            """Host side of one mmap batch on the staging thread: window
+            reads, valid masks and the push to the device."""
+            wins, valids, geoms, tps = [], [], [], []
+            for idx in sub:
+                tl, br = boxes[idx]
+                window, valid, geom = self._read_window(pred_map, tl, br)
+                wins.append(window[..., 1:4] if typed else window[..., 0:3])
+                valids.append(valid)
+                geoms.append(geom)
+                y0, y1, x0, x1 = geom
+                tps.append(window[..., 0].astype(np.int32)[y0:y1, x0:x1]
+                           if typed else None)
+            return (torch.from_numpy(np.stack(wins)).to(self.device),
+                    torch.from_numpy(np.stack(valids)).to(self.device),
+                    geoms, tps)
+
+        def dispatch(shape, sub, staged):
+            if self._pred_dev_mode:
+                starts, geoms = [], []
+                for idx in sub:
+                    tl, br = boxes[idx]
+                    (wy, wx), _, _, geom = self._window_geom(tl, br)
+                    starts.append((wy, wx))
+                    geoms.append(geom)
+                inst, nlab, tp = self._pp_windows(shape, starts, geoms)
+                tps = _to_host_async(tp) if typed else [None] * len(sub)
+            else:
+                wins, valids, geoms, tps = staged
+                inst, nlab = self._post_proc(wins, valids)
+            # start the label pull now; the host reads it `inflight`
+            # batches later
+            return (sub, _to_host_async(inst.to(torch.int32)), nlab, geoms,
+                    tps)
+
+        n_fin = getattr(self, "finalize_workers", 0) or min(
+            8, os.cpu_count() or 1)
+        ext_pool = (ThreadPoolExecutor(max_workers=n_fin)
+                    if n_fin > 1 else None)
+        pending = []
+        try:
+            with ThreadPoolExecutor(max_workers=1) as ex:
+                futs = deque()
+                if not self._pred_dev_mode:
+                    for _, sub in batches[:2]:
+                        futs.append(ex.submit(stage_mmap, sub))
+                for i, (shape, sub) in enumerate(batches):
+                    staged = None
+                    if not self._pred_dev_mode:
+                        staged = futs.popleft().result()
+                        if i + 2 < len(batches):
+                            futs.append(
+                                ex.submit(stage_mmap, batches[i + 2][1]))
+                    pending.append(dispatch(shape, sub, staged))
+                    while len(pending) > inflight:
+                        finalize(pending.pop(0))
+            while pending:
+                finalize(pending.pop(0))
+        finally:
+            if ext_pool is not None:
+                ext_pool.shutdown(wait=True)
+        secs = time.perf_counter() - start
+        logger.info("%s: %d boxes in %.2fs", desc, boxes.shape[0], secs)
+        return len(batches), secs
+
+    def post_process_phases(self):
+        """The 3 phases over the slide's stitched prediction: full tiles,
+        then boundary strips, then 4-corner crosses, each box kept when
+        it touches tissue. Sets `n_window_batches`; returns the seconds
+        of each phase."""
+        grids = wsi_tile_grids(self.wsi_proc_shape,
+                               np.array([self.tile_shape] * 2),
+                               self.ambiguous_size)
+        callbacks = (self._cb_normal_tile, self._cb_fixing_tile,
+                     self._cb_fixing_tile)
+        self.n_window_batches = 0
+        secs = []
+        for k, (grid, cb) in enumerate(zip(grids, callbacks), 1):
+            n, sec = self._dispatch_post_processing(
+                self._select_masked_boxes(grid), cb, f"post-proc phase {k}")
+            self.n_window_batches += n
+            secs.append(sec)
+        return secs
+
+    # -------------------------------------------------------- full run
+
+    def process_single_file(self, wsi_path, msk_path, output_dir):
+        wsi_name = pathlib.Path(wsi_path).stem
+        ext = pathlib.Path(wsi_path).suffix
+        os.makedirs(self.cache_path, exist_ok=True)
+        times: Dict[str, float] = {}
+        self.timings[wsi_name] = times
+
+        start = time.perf_counter()
+        self.wsi_handler = get_file_handler(wsi_path, backend=ext)
+        self.wsi_proc_shape = self.wsi_handler.get_dimensions(self.proc_mag)
+        self.wsi_handler.prepare_reading(
+            read_mag=self.proc_mag,
+            cache_path=f"{self.cache_path}/src_wsi.npy")
+        self.wsi_proc_shape = np.array(self.wsi_proc_shape[::-1])  # (y, x)
+
+        if msk_path is not None and os.path.isfile(msk_path):
+            mask = cv2.cvtColor(cv2.imread(msk_path), cv2.COLOR_BGR2GRAY)
+            self.wsi_mask = (mask > 0).astype(np.uint8)
+        else:
+            logger.warning("no mask found, generating via Otsu at 1.25x")
+            self.wsi_mask = _simple_tissue_mask(
+                self.wsi_handler).astype(np.uint8)
+        if self.wsi_mask.sum() == 0:
+            logger.info("skip due to empty mask")
+            return
+        if getattr(self, "save_mask", False):
+            cv2.imwrite(f"{output_dir}/mask/{wsi_name}.png",
+                        self.wsi_mask * 255)
+        if getattr(self, "save_thumb", False):
+            thumb = self.wsi_handler.get_full_img(read_mag=1.25)
+            cv2.imwrite(f"{output_dir}/thumb/{wsi_name}.png",
+                        cv2.cvtColor(thumb, cv2.COLOR_RGB2BGR))
+
+        out_ch = 4 if self.nr_types is not None else 3
+        proc_shape = tuple(int(v) for v in self.wsi_proc_shape)
+        pred_bytes = (proc_shape[0] * proc_shape[1] * out_ch
+                      * self.pred_map_dtype.itemsize)
+        self._pred_dev_mode = pred_bytes <= self.hbm_pred_budget
+        if self._pred_dev_mode:
+            self._alloc_pred_dev(out_ch)
+            self._pred_map_path = None
+            logger.info("pred map resident on %s (%.2f GB)", self.device,
+                        pred_bytes / 2**30)
+        else:
+            self._pred_dev = None
+            self._pred_map_path = f"{self.cache_path}/pred_map.npy"
+            pred_map = np.lib.format.open_memmap(
+                self._pred_map_path, mode="w+",
+                shape=proc_shape + (out_ch,), dtype=self.pred_map_dtype)
+            del pred_map
+        self.wsi_inst_map = np.lib.format.open_memmap(
+            f"{self.cache_path}/pred_inst.npy", mode="w+",
+            shape=proc_shape, dtype=np.int32)
+        self.wsi_inst_info: Dict[int, dict] = {}
+        times["prepare"] = time.perf_counter() - start
+
+        # ---- raw prediction over chunks
+        start = time.perf_counter()
+        chunk_info, patch_info = wsi_chunk_patch_grids(
+            self.wsi_proc_shape, np.array([self.chunk_shape] * 2),
+            np.array([self.cfg.patch_input_shape] * 2),
+            np.array([self.cfg.patch_output_shape] * 2))
+        self.n_forward_batches = 0
+        self._get_raw_prediction(chunk_info, patch_info)
+        times["inference"] = time.perf_counter() - start
+        logger.info("inference: %.2fs (%d forward batches)",
+                    times["inference"], self.n_forward_batches)
+
+        # ---- 3-phase post-processing
+        start = time.perf_counter()
+        for k, secs in enumerate(self.post_process_phases(), 1):
+            times[f"post_proc_phase{k}"] = secs
+        times["post_proc"] = time.perf_counter() - start
+        logger.info("post-proc: %.2fs", times["post_proc"])
+
+        start = time.perf_counter()
+        if getattr(self, "save_mask", False) or \
+                getattr(self, "save_thumb", False):
+            json_path = f"{output_dir}/json/{wsi_name}.json"
+        else:
+            json_path = f"{output_dir}/{wsi_name}.json"
+        base.save_json(json_path, self.wsi_inst_info, mag=self.proc_mag)
+        times["save"] = time.perf_counter() - start
+        logger.info("save: %.2fs", times["save"])
+        self._pred_dev = None  # free device memory before the next slide
+
+    # ---- phase callbacks (the reference's boundary bookkeeping)
+
+    def _cb_normal_tile(self, pred_inst, inst_info, tl, br):
+        if len(inst_info) == 0:
+            return
+        top_left = np.array([tl[1], tl[0]])  # (x, y)
+        wsi_max_id = max(self.wsi_inst_info.keys(), default=0)
+        for inst_id, info in inst_info.items():
+            info["bbox"] += np.asarray(tl)  # bbox rows are (y, x)
+            info["contour"] += top_left
+            info["centroid"] += top_left
+            self.wsi_inst_info[inst_id + wsi_max_id] = info
+        pred_inst = np.where(pred_inst > 0, pred_inst + wsi_max_id, 0)
+        self.wsi_inst_map[tl[0]:br[0], tl[1]:br[1]] = pred_inst
+
+    def _cb_fixing_tile(self, pred_inst, inst_info, tl, br):
+        if len(inst_info) == 0:
+            return
+        top_left = np.array([tl[1], tl[0]])
+        wsi_max_id = max(self.wsi_inst_info.keys(), default=0)
+
+        # keep old nuclei that straddle this window's boundary; drop the
+        # interior ones (the re-prediction replaces them)
+        roi = np.array(self.wsi_inst_map[tl[0]:br[0], tl[1]:br[1]])
+        edge_ids = np.unique(np.concatenate([
+            roi[[0, -1], :].ravel(), roi[:, [0, -1]].ravel()]))
+        edge_ids = edge_ids[edge_ids > 0]
+        inner_ids = np.setdiff1d(np.unique(roi)[1:], edge_ids,
+                                 assume_unique=True)
+        roi[np.isin(roi, inner_ids)] = 0
+        self.wsi_inst_map[tl[0]:br[0], tl[1]:br[1]] = roi
+        for inst_id in inner_ids:
+            self.wsi_inst_info.pop(int(inst_id), None)
+
+        # from the new prediction, drop nuclei overlapping the kept old
+        # boundary-straddlers; install the rest
+        overlap_ids = np.unique(pred_inst[roi > 0])
+        new_inner = np.setdiff1d(np.unique(pred_inst)[1:], overlap_ids,
+                                 assume_unique=True)
+        pred_inst = np.where(np.isin(pred_inst, overlap_ids), 0, pred_inst)
+        for inst_id in new_inner:
+            if inst_id not in inst_info:
+                logger.info("nucleus id=%d missing from info dict", inst_id)
+                continue
+            info = inst_info[inst_id]
+            info["bbox"] += np.asarray(tl)
+            info["contour"] += top_left
+            info["centroid"] += top_left
+            self.wsi_inst_info[int(inst_id) + wsi_max_id] = info
+        pred_inst = np.where(pred_inst > 0, pred_inst + wsi_max_id, 0)
+        self.wsi_inst_map[tl[0]:br[0], tl[1]:br[1]] = roi + pred_inst
+
+    # -------------------------------------------------------------- run
+
+    def process_wsi_list(self, input_dir, output_dir, input_mask_dir=None,
+                         save_thumb=False, save_mask=False):
+        """Every slide of `input_dir` -> `<name>.json` (under json/ when
+        thumbnails or masks are saved too). A slide whose json exists is
+        skipped (resume); a slide that fails is logged and the next one
+        runs. Returns the number of slides written."""
+        self.save_thumb = save_thumb
+        self.save_mask = save_mask
+        os.makedirs(self.cache_path, exist_ok=True)
+        os.makedirs(f"{output_dir}/json", exist_ok=True)
+        if save_thumb:
+            os.makedirs(f"{output_dir}/thumb", exist_ok=True)
+        if save_mask:
+            os.makedirs(f"{output_dir}/mask", exist_ok=True)
+
+        written = 0
+        for wsi_path in sorted(glob.glob(f"{input_dir}/*")):
+            if os.path.isdir(wsi_path):
+                continue
+            name = pathlib.Path(wsi_path).stem
+            msk_path = (f"{input_mask_dir}/{name}.png"
+                        if input_mask_dir else None)
+            out_file = (f"{output_dir}/json/{name}.json"
+                        if (save_thumb or save_mask)
+                        else f"{output_dir}/{name}.json")
+            if os.path.exists(out_file):
+                logger.info("skip (resume): %s", name)
+                continue
+            try:
+                logger.info("process: %s", name)
+                self.process_single_file(wsi_path, msk_path, output_dir)
+                written += os.path.exists(out_file)
+                logger.info("finish %s", name)
+            except Exception:
+                logger.exception("crash on %s", name)
+            finally:
+                self._pred_dev = None  # free device memory even on failure
+        shutil.rmtree(self.cache_path, ignore_errors=True)
+        return written

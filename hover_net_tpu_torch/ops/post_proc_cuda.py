@@ -13,9 +13,9 @@ labels are those of the JAX exact path, `proc_np_hv_batch(exact=True)`.
 - CPU tensors go to `proc_tail_reference`, the plain version built
   from ops/post_proc_device.py.
 - CUDA tensors go to the kernel. The library is compiled with nvcc for
-  sm_90a at first use from the sources in this package, into
-  build/hover_net_tpu_torch/ at the repository root, keyed by a hash of
-  the source; a failed build raises. There is no fallback.
+  sm_90a at first use by ops/nvcc_build.py, into build/hover_net_tpu_torch/
+  at the repository root, keyed by a hash of the source; a failed build
+  raises. There is no fallback.
 
 `proc_tail.launches` counts the kernel launches (one per call).
 """
@@ -23,17 +23,13 @@ labels are those of the JAX exact path, `proc_np_hv_batch(exact=True)`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from hover_net_tpu.ops.cc_np import ellipse_structuring_element
 
 from . import filters
+from .nvcc_build import build_library
 from .post_proc_device import (
     NUM_LEVELS,
     connected_components,
@@ -41,12 +37,6 @@ from .post_proc_device import (
     remove_small,
     watershed_flood,
 )
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "post_proc_tail.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hover_net_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 # the sweep orders the kernel's in-place watershed relaxations accept:
 # 0 raster, 1 reversed raster, 2 strided permutation (tests only; the
@@ -74,43 +64,7 @@ def proc_tail_reference(blb: torch.Tensor, sob: torch.Tensor,
 
 # ------------------------------------------------------------ the kernel
 
-class _Lib:
-    """The compiled library, built once per process under a lock."""
-
-    lock = threading.Lock()
-    handle = None
-
-
-def build() -> ctypes.CDLL:
-    """Compile csrc/post_proc_tail.cu (if this source has no library yet)
-    and load it. Raises on any failure."""
-    if _Lib.handle is not None:
-        return _Lib.handle
-    with _Lib.lock:
-        if _Lib.handle is None:
-            _Lib.handle = _build_locked()
-    return _Lib.handle
-
-
-def _build_locked() -> ctypes.CDLL:
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
-    so_path = os.path.join(BUILD_DIR, f"post_proc_tail_{digest}.so")
-    if not os.path.exists(so_path):
-        nvcc = shutil.which("nvcc") or os.path.join(
-            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: cannot build the CUDA "
-                               "post-processing kernel")
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.tmp{os.getpid()}"
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, _SRC],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
-        os.replace(tmp, so_path)
-    lib = ctypes.CDLL(so_path)
+def _bind(lib: ctypes.CDLL) -> None:
     lib.hnt_proc_tail_workspace_bytes.restype = ctypes.c_int64
     lib.hnt_proc_tail_workspace_bytes.argtypes = [ctypes.c_int64]
     lib.hnt_proc_tail.restype = ctypes.c_int
@@ -121,7 +75,12 @@ def _build_locked() -> ctypes.CDLL:
     ]
     lib.hnt_error_string.restype = ctypes.c_char_p
     lib.hnt_error_string.argtypes = [ctypes.c_int]
-    return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile csrc/post_proc_tail.cu (if this source has no library yet)
+    and load it. Raises on any failure."""
+    return build_library("post_proc_tail", _bind)
 
 
 def _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size, sweep_order):
