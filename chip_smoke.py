@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the kernels K1 and K3 from csrc/, one nvcc each,
-   started together;
+2. build: compiles the kernels from csrc/, one nvcc per source, started
+   together: post_proc_tail.cu (K1, K2 and K4) and fused_block.cu (K3);
 3. K1 against its plain PyTorch version on the card: identical labels on
    a 1148^2 canvas of synthetic nuclei mirrored about a 1000^2 source
    (with its valid mask), a noisy map, an empty map and a 164^2 map;
@@ -42,8 +42,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every [4, 2048, 2048]-class window batch and on the whole map;
    median times of both at the 2048^2 batch; against the single-shot K1
    solve of the whole map, counts within 1% and AJI > 0.95;
-9. prints the kernel table as one JSON line (K1's times at the WSI
-   window batch), the card line, and last
+9. K2, the standalone watershed, against its plain version, element for
+   element, in all three sweep orders: the 128^2 watershed test maps
+   (seeds 0 and 1, a batch of 3) and the 1148^2 probe canvas (energy,
+   markers and mask from the tail's stages before the watershed, where
+   K2 must also give K1's labels); median times at 1148^2; the blocked
+   entry at 800x700 with 160 nuclei (the op API as a user calls it):
+   identical to the same entry's plain version on its [9, 512, 512]
+   window batch, and against the whole-map K2 an equal instance count
+   and AJI > 0.999;
+10. K4, the tail's stage-ablation variants: each of the six against its
+   plain version at 1148^2 (identical labels; skip="none" equals K1) with
+   median times of both; then the stage probe as a user runs it
+   (cli/probe_pp_stages --size 1000), which prints the per-stage split;
+11. prints the kernel table as one JSON line (K1's times at the WSI
+   window batch; each kernel's bound from its inputs and outputs at the
+   timed shape), the card line, and last
    {"ok": true, "device": {...}}.
 
 Outputs go to build/chip_smoke/ in the checkout.
@@ -68,6 +82,10 @@ N_NUCLEI = 1200
 SLIDE = 4096       # side of the WSI pseudo-slide
 SLIDE_NUCLEI = 1500
 K3_BATCH = 32      # patches per forward batch of the WSI path
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
+# dense bf16 tensor-core FLOP/s, for each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 
 
 def log(msg):
@@ -133,6 +151,20 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes, flops=0.0):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    each input read once and each output written once. K1, K2 and K4 do
+    a few integer operations per pixel and sweep (no tensor-core work),
+    so they pass no FLOPs and are bound by bytes."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def median_ms(fn, reps):
@@ -324,7 +356,8 @@ def finalize_real_nuclei(mgr, canvas):
 
 
 def build_kernels():
-    """Phase 2: K1 and K3 from csrc/, one nvcc each, started together."""
+    """Phase 2: post_proc_tail.cu (K1, K2, K4) and fused_block.cu (K3)
+    from csrc/, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hover_net_tpu_torch.ops import fused_block_cuda, post_proc_cuda
@@ -336,7 +369,7 @@ def build_kernels():
 
     with ThreadPoolExecutor(max_workers=2) as ex:
         futs = {name: ex.submit(timed, mod.build) for name, mod in (
-            ("K1", post_proc_cuda), ("K3", fused_block_cuda))}
+            ("K1/K2/K4", post_proc_cuda), ("K3", fused_block_cuda))}
         for name, fut in futs.items():
             secs, path = fut.result()
             log(f"build: {name} built by nvcc and loaded in {secs:.3f} s "
@@ -388,12 +421,18 @@ def check_k3(model):
         x = model.conv0(imgs.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0)
     x = x.permute(0, 2, 3, 1).contiguous()
     inputs, ms, plain_ms, max_err = {}, 0.0, 0.0, 0.0
+    nbytes, flops = 0, 0
     for name, _, _, kw in CALLS:
         packed, units = pk[name]
         inputs[name] = x
         got = fused_block_apply(x, packed, units=units, **kw)
         want = fused_block_reference(x, packed, **kw)
         torch.cuda.synchronize()
+        # each weight is one product over every pixel it sees: the unit-0
+        # conv1 at the input's resolution, every other one at the output's
+        nbytes += tensor_bytes(x, got, *packed.values())
+        flops += sum(2 * w.numel() * (x if k == "w1_0" else got)[..., 0]
+                     .numel() for k, w in packed.items() if k[0] == "w")
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
         scale = want.float().abs().max().item()
@@ -411,7 +450,8 @@ def check_k3(model):
         ms, plain_ms, max_err = ms + t_k, plain_ms + t_p, max(max_err, err)
         x = got
     log(f"K3 encoder d0..d2 at batch {K3_BATCH}: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms")
+        f"{plain_ms:.3f} ms; {flops / 1e12:.4f} TFLOP, {nbytes / 1e6:.3f} MB")
+    library_ms = 0.0
 
     with torch.no_grad():  # the standard path: cuDNN modules, bf16
         for name, block, src in (("d0", model.d0, "d0"),
@@ -419,6 +459,7 @@ def check_k3(model):
                                  ("d2", model.d2, "d2a")):
             xin = inputs[src].permute(0, 3, 1, 2)
             t_c = median_ms(lambda: block(xin), 10)
+            library_ms += t_c
             log(f"cuDNN standard module {name} at batch {K3_BATCH}: "
                 f"{t_c:.3f} ms (median, CUDA events)")
 
@@ -440,7 +481,8 @@ def check_k3(model):
         f"{split}")
     if not (same and split):
         raise AssertionError("K3 output depends on the tiling or the split")
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err}
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err,
+            "bound": bound(nbytes, flops), "library_ms": library_ms}
 
 
 def check_fused_forward(model):
@@ -621,6 +663,7 @@ def wsi_real_nuclei(mgr, work):
     plain_ms = median_ms(lambda: proc_tail_reference(blb, sob), 3)
     log(f"K1 time at WSI window batch {tuple(blb.shape)}: kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events)")
+    k1_bound = bound(tensor_bytes(blb, sob, proc_tail(blb, sob)))
 
     # the stitching algorithm against the single-shot solve of the whole
     # map: the fixing rule of phases 2-3 may drop a re-predicted nucleus
@@ -641,7 +684,137 @@ def wsi_real_nuclei(mgr, work):
     if abs(n_tiled - n_whole) > 0.01 * n_whole or aji <= 0.95 \
             or n_whole < 1000:
         raise AssertionError("the stitched WSI instances are off")
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err}
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err,
+            "bound": k1_bound}
+
+
+def check_k2(dev, canvas):
+    """Phase 9: K2 == plain on the watershed test maps and the 1148^2
+    canvas in all three sweep orders; times at 1148^2; the blocked entry
+    against its plain version (the same entry on the CPU) element for
+    element, and against the whole-map K2 at instance level."""
+    import torch
+
+    from hover_net_tpu_torch.ops.post_proc_cuda import (
+        SWEEP_ORDERS,
+        proc_tail,
+        watershed_inputs,
+    )
+    from hover_net_tpu_torch.ops.watershed_cuda import (
+        watershed,
+        watershed_blocked,
+        watershed_reference,
+    )
+
+    sys.path.append(os.path.join(ROOT, "tests"))
+    threads = torch.get_num_threads()
+    from test_torch_watershed import make_case  # numpy, pytest, torch only
+    torch.set_num_threads(threads)  # the test module pins one thread
+
+    def on_card(*maps):
+        return [torch.from_numpy(np.stack(m)).to(dev) for m in zip(*maps)]
+
+    cases = [(f"make_case_seed{seed}",
+              on_card(make_case(np.random.default_rng(seed))))
+             for seed in (0, 1)]
+    rng = np.random.default_rng(2)
+    cases.append(("make_case_batch3", on_card(*[make_case(rng)
+                                                for _ in range(3)])))
+    blb, sob = canvas
+    cases.append((f"canvas_{CANVAS}", list(watershed_inputs(blb, sob))))
+    max_err = 0
+    for name, (e, m, b) in cases:
+        want = watershed_reference(e, m, b)
+        for order in SWEEP_ORDERS:
+            got = watershed(e, m, b, sweep_order=order)
+            torch.cuda.synchronize()
+            n_diff = int((got != want).sum())
+            max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+            if n_diff:
+                raise AssertionError(f"K2 disagrees with its plain version "
+                                     f"on {name}, sweep order {order}")
+        log(f"K2 vs plain {name} {tuple(e.shape)}: {len(torch.unique(want)) - 1}"
+            f" instances, identical in sweep orders {SWEEP_ORDERS}")
+    if not torch.equal(want, proc_tail(blb, sob)):
+        raise AssertionError("K2 on the tail's own stages differs from K1")
+    ms = median_ms(lambda: watershed(e, m, b), 20)
+    plain_ms = median_ms(lambda: watershed_reference(e, m, b), 5)
+    log(f"K2 time at {CANVAS}^2: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+        f"(median, CUDA events); K2 on the tail's stages == K1")
+    k2_bound = bound(tensor_bytes(e, m, b, want))
+
+    # the op API as a user calls it: the blocked entry and the whole map
+    e, m, b = on_card(make_case(np.random.default_rng(5), (800, 700), 160))
+    watershed.launches = 0
+    whole = watershed(e, m, b)
+    blocked = watershed_blocked(e, m, b)
+    launches = watershed.launches
+    # the plain version of the blocked entry: the same window batch
+    # ([9, 512, 512] here), solved by watershed_reference on the CPU
+    plain = watershed_blocked(e.cpu(), m.cpu(), b.cpu())
+    n_diff = int((blocked.cpu() != plain).sum())
+    max_err = max(max_err, int((blocked.cpu().long() - plain.long())
+                               .abs().max()))
+    whole, blocked = whole[0].cpu().numpy(), blocked[0].cpu().numpy()
+    n_whole = len(np.unique(whole)) - 1
+    n_blocked = len(np.unique(blocked)) - 1
+    aji = fast_aji(whole, blocked)
+    log(f"K2 blocked (core 320, halo 96) at 800x700: {n_diff} labels differ "
+        f"from its plain version; vs whole map {n_blocked} vs {n_whole} "
+        f"instances, AJI {aji:.6f}; K2 launches {launches}")
+    if n_diff:
+        raise AssertionError("the blocked K2 disagrees with its plain version")
+    if launches != 2 or n_blocked != n_whole or aji <= 0.999 \
+            or n_whole < 100:
+        raise AssertionError("the blocked K2 is off")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err,
+            "bound": k2_bound, "launches": launches}
+
+
+def check_k4(canvas):
+    """Phase 10: the six K4 variants == plain at 1148^2 and their times;
+    then the stage probe as a user runs it."""
+    import torch
+
+    from hover_net_tpu_torch.cli import probe_pp_stages
+    from hover_net_tpu_torch.ops.post_proc_cuda import (
+        SKIPS,
+        proc_tail,
+        proc_tail_reference,
+    )
+
+    blb, sob = canvas
+    full = proc_tail(blb, sob)
+    max_err, ms, plain_ms = 0, [], []
+    for skip in SKIPS:
+        got = proc_tail(blb, sob, skip=skip)
+        want = proc_tail_reference(blb, sob, skip=skip)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+        if n_diff or (skip == "none" and not torch.equal(got, full)):
+            raise AssertionError(f"K4 variant {skip} disagrees with its "
+                                 "plain version or with K1")
+        if skip != "none":
+            ms.append(median_ms(lambda: proc_tail(blb, sob, skip=skip), 20))
+            plain_ms.append(median_ms(
+                lambda: proc_tail_reference(blb, sob, skip=skip), 5))
+            timing = f"; kernel {ms[-1]:.3f} ms, plain {plain_ms[-1]:.3f} ms"
+        else:
+            timing = " (K1)"
+        log(f"K4 vs plain skip={skip} {tuple(blb.shape)}: "
+            f"{len(torch.unique(want)) - 1} labels, identical{timing}")
+
+    proc_tail.skip_launches = 0
+    log(f"$ python -m hover_net_tpu_torch.cli.probe_pp_stages --size {SRC_HW}")
+    probe_pp_stages.main(["--size", str(SRC_HW)])
+    launches = proc_tail.skip_launches
+    if launches != (probe_pp_stages.REPS + 1) * (len(SKIPS) - 1):
+        raise AssertionError(f"the probe launched K4 {launches} times")
+    return {"ms": statistics.mean(ms), "plain_ms": statistics.mean(plain_ms),
+            "max_abs_err": max_err,
+            "bound": bound(tensor_bytes(blb, sob, full)),
+            "launches": launches}
 
 
 def main():
@@ -680,26 +853,36 @@ def main():
     torch.cuda.empty_cache()
     k3_launches, k1_launches = run_wsi(wsi_mgr, dirs)
     k1_wsi = wsi_real_nuclei(wsi_mgr, work)
+    del wsi_mgr
+    torch.cuda.empty_cache()
 
-    kernels = [{
-        "name": "post_proc_tail",
-        "route": "cuda",
-        "source": "hover_net_tpu_torch/csrc/post_proc_tail.cu",
-        "replaces": "hover_net_tpu/ops/post_proc_pallas.py:272",
-        "launches": k1_launches,
-        "max_abs_err": max(k1["max_abs_err"], k1_wsi["max_abs_err"]),
-        "ms": k1_wsi["ms"],
-        "plain_ms": k1_wsi["plain_ms"],
-    }, {
-        "name": "fused_block",
-        "route": "cuda",
-        "source": "hover_net_tpu_torch/csrc/fused_block.cu",
-        "replaces": "hover_net_tpu/models/encoder_pallas.py:220",
-        "launches": k3_launches,
-        "max_abs_err": k3["max_abs_err"],
-        "ms": k3["ms"],
-        "plain_ms": k3["plain_ms"],
-    }]
+    from hover_net_tpu_torch.cli.probe_pp_stages import canvas_inputs
+
+    canvas = canvas_inputs(SRC_HW, dev)
+    k2 = check_k2(dev, canvas)
+    k4 = check_k4(canvas)
+
+    def entry(name, source, replaces, launches, res):
+        return {"name": name, "route": "cuda",
+                "source": f"hover_net_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound"][0],
+                "bound_by": res["bound"][1],
+                "library_ms": res.get("library_ms")}
+
+    k1_wsi["max_abs_err"] = max(k1["max_abs_err"], k1_wsi["max_abs_err"])
+    kernels = [
+        entry("post_proc_tail", "post_proc_tail.cu",
+              "hover_net_tpu/ops/post_proc_pallas.py:272", k1_launches,
+              k1_wsi),
+        entry("fused_block", "fused_block.cu",
+              "hover_net_tpu/models/encoder_pallas.py:220", k3_launches, k3),
+        entry("watershed", "post_proc_tail.cu",
+              "hover_net_tpu/ops/watershed_pallas.py:69", k2["launches"], k2),
+        entry("post_proc_stages", "post_proc_tail.cu",
+              "scripts/probe_pp_stages.py:73", k4["launches"], k4),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

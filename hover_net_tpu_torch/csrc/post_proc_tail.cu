@@ -1,5 +1,8 @@
-// K1: the HoVer-Net post-processing tail on Hopper (sm_90a).
+// K1, K2 and K4: the HoVer-Net post-processing tail, the standalone
+// marker watershed, and the tail's stage-ablation variants, on Hopper
+// (sm_90a). One library, built by hover_net_tpu_torch/ops/nvcc_build.py.
 //
+// K1 (`hnt_proc_tail`, skip = 0).
 // Replaces the TPU's Pallas kernel `_make_kernel` in
 // hover_net_tpu/ops/post_proc_pallas.py (launched by `proc_tail_blocked`
 // through `pl.pallas_call`). Input: the thresholded nuclei mask `blb`
@@ -47,6 +50,32 @@
 // thread-to-pixel map of the relaxation sweeps so that a test can show it
 // (0 raster, 1 reversed, 2 strided by a prime).
 //
+// K4 (`hnt_proc_tail`, skip > 0) replaces the TPU kernel `kernel` inside
+// `make_variant` of scripts/probe_pp_stages.py: K1 with one stage left
+// out, to time the stages on this card. skip = 1 (ws) returns the marker
+// labels with no watershed; 2 (ws_phase2) runs phase 1 only and returns
+// blob & cost reached ? seed label + (cost & 0xFF) : 0; 3 (rmsmall)
+// skips both small-object removals; 4 (fill) skips fill-holes; 5 (open)
+// skips the 5x5 opening. skip = 0 launches exactly K1's kernels. Unlike
+// the TPU probe, whose blur fills zeros at its window edge, K4 blurs as
+// K1 does (reflect-101), because it exists to time K1's stages.
+//
+// K2 (`hnt_watershed`) replaces the TPU kernel `_kernel` of
+// hover_net_tpu/ops/watershed_pallas.py (`watershed_pallas`): the marker
+// watershed alone, on int32 quantised energy, int32 markers (any positive
+// label) and a uint8 flood mask. It is K1's stages 6 and 7 behind its own
+// seed pass (`ws_seed`: seeded = marker > 0 && mask, cost = seeded ?
+// energy << 15 : INT_MAX, packed = seeded ? marker : INT_MAX << 32) and
+// K1's final pass (`ws_final`: mask ? label : 0). The packed phase-2 word
+// (hops << 32) | label compares as unsigned, and a positive int32 label
+// orders the same as unsigned, so ties still go to the smallest label, as
+// in `_label_sweep`. The TPU kernel relaxes synchronously (Jacobi) and K2
+// in place, as K1 does; both reach the same unique fixpoint (below).
+// Bound on this card: bytes, 13 per pixel in and out (energy, markers,
+// mask, labels); like K1's watershed it spends its time in sweeps x
+// (launch + flag round trip). The TPU kernel had to fit one map in VMEM
+// (<= ~512^2); K2 takes any n * h * w < 2^31.
+//
 // Float rounding. The float stages must round exactly as the plain
 // PyTorch version does, so every float operation is an explicit
 // round-to-nearest intrinsic (no FMA contraction; the library is also
@@ -66,6 +95,9 @@ constexpr int kThreads = 256;
 constexpr int64_t kStride = 7919;  // prime; sweep_order 2
 // returned when a relaxation exceeds its sweep bound (not a cudaError_t)
 constexpr int kNoFixpoint = 100000;
+// K4's `skip` codes (ops/post_proc_cuda.py SKIPS)
+enum Skip { kSkipNone, kSkipWs, kSkipWsPhase2, kSkipRmsmall, kSkipFill,
+            kSkipOpen, kSkipCount };
 
 // cv2.getStructuringElement(MORPH_ELLIPSE, (5, 5))
 __constant__ unsigned char kSelem[5][5] = {
@@ -140,11 +172,13 @@ __global__ void count_sizes(const uint8_t* mask, int pol, const int* parent,
   if (i < total && in_mask(mask, pol, i)) atomicAdd(&cnt[parent[i]], 1);
 }
 
+// min_size <= 0 keeps every component (then `cnt` is not read)
 __global__ void keep_large(const uint8_t* mask, const int* parent,
                            const int* cnt, int min_size, uint8_t* out,
                            int64_t total) {
   int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i < total) out[i] = mask[i] && cnt[parent[i]] >= min_size;
+  if (i < total)
+    out[i] = mask[i] && (min_size <= 0 || cnt[parent[i]] >= min_size);
 }
 
 // ------------------------------------------------------------- energy
@@ -236,18 +270,40 @@ __device__ __forceinline__ int cross_cost(int q_c, int energy_sh) {
   return energy_sh > lev ? energy_sh : q_c + ((q_c & kHopMask) != kHopMask);
 }
 
+// the marker label of pixel i after removal: 1 + its component's first
+// pixel in the map, or 0 (min_size <= 0 keeps every component)
+__device__ __forceinline__ int marker_label(const uint8_t* marker,
+                                            const int* parent, const int* cnt,
+                                            int min_size, int64_t i, Geom g) {
+  if (!marker[i] || (min_size > 0 && cnt[parent[i]] < min_size)) return 0;
+  return (int)(parent[i] - i / g.hw * g.hw + 1);
+}
+
 __global__ void ws_init(const uint8_t* marker, const int* parent,
                         const int* cnt, int min_size, const uint8_t* blob,
                         const int* energy_sh, int* cost,
                         unsigned long long* packed, Geom g) {
   int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (i >= g.total) return;
-  int64_t b = i / g.hw;
-  int lab = (marker[i] && cnt[parent[i]] >= min_size)
-                ? (int)(parent[i] - b * g.hw + 1) : 0;
+  int lab = marker_label(marker, parent, cnt, min_size, i, g);
   bool seeded = lab > 0 && blob[i];
   cost[i] = seeded ? energy_sh[i] : kIntMax;
   packed[i] = seeded ? (unsigned long long)lab
+                     : ((unsigned long long)kIntMax << 32);
+}
+
+// K2's seed pass: arbitrary positive int32 markers inside `mask`
+__global__ void ws_seed(const int* energy_q, const int* markers,
+                        const uint8_t* mask, int* energy_sh, int* cost,
+                        unsigned long long* packed, int64_t total) {
+  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  int m = markers[i];
+  bool seeded = m > 0 && mask[i];
+  int e = (int)((unsigned)energy_q[i] << kHopBits);
+  energy_sh[i] = e;
+  cost[i] = seeded ? e : kIntMax;
+  packed[i] = seeded ? (unsigned long long)(unsigned)m
                      : ((unsigned long long)kIntMax << 32);
 }
 
@@ -321,6 +377,24 @@ __global__ void ws_final(const uint8_t* blob, const unsigned long long* packed,
     out[i] = blob[i] ? (int)(unsigned)(packed[i] & 0xffffffffull) : 0;
 }
 
+// K4, skip = ws: the marker labels, no watershed
+__global__ void marker_out(const uint8_t* marker, const int* parent,
+                           const int* cnt, int min_size, int* out, Geom g) {
+  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i < g.total) out[i] = marker_label(marker, parent, cnt, min_size, i, g);
+}
+
+// K4, skip = ws_phase2: phase 1 only; `packed` still holds the seeds
+__global__ void phase1_out(const uint8_t* blob, const int* cost,
+                           const unsigned long long* packed, int* out,
+                           int64_t total) {
+  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  int c = cost[i];
+  out[i] = (blob[i] && c != kIntMax)
+               ? (int)(unsigned)(packed[i] & 0xffffffffull) + (c & 0xFF) : 0;
+}
+
 // -------------------------------------------------------------- host
 
 struct Workspace {
@@ -348,6 +422,28 @@ int64_t carve(char* base, int64_t total, Workspace* ws) {
   w.blob = (uint8_t*)take(total);
   w.marker = (uint8_t*)take(total);
   w.tmp = (uint8_t*)take(total);
+  w.flag = (int*)take(4);
+  if (ws) *ws = w;
+  return off;
+}
+
+// K2's workspace: the watershed state only
+struct WsWorkspace {
+  unsigned long long* packed;
+  int *energy_sh, *cost, *flag;
+};
+
+int64_t carve_ws(char* base, int64_t total, WsWorkspace* ws) {
+  int64_t off = 0;
+  auto take = [&](int64_t bytes) {
+    char* r = base ? base + off : nullptr;
+    off += (bytes + 255) / 256 * 256;
+    return r;
+  };
+  WsWorkspace w;
+  w.packed = (unsigned long long*)take(total * 8);
+  w.energy_sh = (int*)take(total * 4);
+  w.cost = (int*)take(total * 4);
   w.flag = (int*)take(4);
   if (ws) *ws = w;
   return off;
@@ -389,6 +485,25 @@ int relax(int* flag, int64_t max_sweeps, cudaStream_t s, Sweep sweep) {
   return kNoFixpoint;
 }
 
+// watershed phase 1: relax the packed cost over `mask` to its fixpoint
+int relax_cost(int* cost, const int* energy_sh, const uint8_t* mask,
+               int* flag, Geom g, unsigned blocks, int order, cudaStream_t s) {
+  return relax(flag, g.total + 1, s, [&] {
+    ws_cost_sweep<<<blocks, kThreads, 0, s>>>(cost, energy_sh, mask, g, order,
+                                              flag);
+  });
+}
+
+// watershed phase 2: (hops, label) ties along cost-attaining edges
+int relax_labels(const int* cost, const int* energy_sh, const uint8_t* mask,
+                 unsigned long long* packed, int* flag, Geom g,
+                 unsigned blocks, int order, cudaStream_t s) {
+  return relax(flag, g.total + 1, s, [&] {
+    ws_label_sweep<<<blocks, kThreads, 0, s>>>(cost, energy_sh, mask, packed,
+                                               g, order, flag);
+  });
+}
+
 }  // namespace
 
 extern "C" int64_t hnt_proc_tail_workspace_bytes(int64_t total) {
@@ -401,12 +516,12 @@ extern "C" const char* hnt_error_string(int err) {
 }
 
 // blb uint8 [n, h, w], sob float32 [n, h, w] -> out int32 [n, h, w];
-// workspace: hnt_proc_tail_workspace_bytes(n * h * w) bytes, 256-aligned.
-// Returns 0 or a cudaError_t.
+// workspace: hnt_proc_tail_workspace_bytes(n * h * w) bytes, 256-aligned;
+// skip: a Skip code (0 = the whole tail, K1). Returns 0 or a cudaError_t.
 extern "C" int hnt_proc_tail(const void* blb_p, const void* sob_p, void* out_p,
                              void* ws_p, int n, int h, int w,
                              int marker_min_size, int blob_min_size,
-                             int sweep_order, void* stream) {
+                             int sweep_order, int skip, void* stream) {
   const uint8_t* blb = (const uint8_t*)blb_p;
   const float* sob = (const float*)sob_p;
   int* out = (int*)out_p;
@@ -415,50 +530,97 @@ extern "C" int hnt_proc_tail(const void* blb_p, const void* sob_p, void* out_p,
   unsigned blocks = (unsigned)((g.total + kThreads - 1) / kThreads);
   Workspace ws;
   carve((char*)ws_p, g.total, &ws);
+  if (skip < 0 || skip >= kSkipCount) return cudaErrorInvalidValue;
+  // skip = rmsmall: no size counts, every component kept
+  bool rm = skip != kSkipRmsmall;
+  int blob_min = rm ? blob_min_size : 0, marker_min = rm ? marker_min_size : 0;
   cudaError_t err;
   int rc;
 
   // 1. blob CCL + small-object removal
   if ((err = ccl(blb, 1, ws.parent, g, blocks, s))) return err;
-  if ((err = sizes(blb, ws.parent, ws.cnt, g, blocks, s))) return err;
-  keep_large<<<blocks, kThreads, 0, s>>>(blb, ws.parent, ws.cnt,
-                                         blob_min_size, ws.blob, g.total);
+  if (rm && (err = sizes(blb, ws.parent, ws.cnt, g, blocks, s))) return err;
+  keep_large<<<blocks, kThreads, 0, s>>>(blb, ws.parent, ws.cnt, blob_min,
+                                         ws.blob, g.total);
   // 2. energy and raw markers
   energy_dist<<<blocks, kThreads, 0, s>>>(sob, ws.blob, ws.dist, ws.marker,
                                           g.total);
   blur_quantize<<<blocks, kThreads, 0, s>>>(ws.dist, ws.energy_sh, g);
   if ((err = cudaGetLastError())) return err;
   // 3. fill-holes: background components that miss the border
-  if ((err = ccl(ws.marker, 0, ws.parent, g, blocks, s))) return err;
-  if ((err = cudaMemsetAsync(ws.cnt, 0, g.total * sizeof(int), s)))
-    return err;
-  border_touch<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt, g);
-  fill_enclosed<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt,
-                                            g.total);
+  if (skip != kSkipFill) {
+    if ((err = ccl(ws.marker, 0, ws.parent, g, blocks, s))) return err;
+    if ((err = cudaMemsetAsync(ws.cnt, 0, g.total * sizeof(int), s)))
+      return err;
+    border_touch<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt, g);
+    fill_enclosed<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt,
+                                              g.total);
+  }
   // 4. 5x5 opening
-  morph5<true><<<blocks, kThreads, 0, s>>>(ws.marker, ws.tmp, g);
-  morph5<false><<<blocks, kThreads, 0, s>>>(ws.tmp, ws.marker, g);
-  if ((err = cudaGetLastError())) return err;
+  if (skip != kSkipOpen) {
+    morph5<true><<<blocks, kThreads, 0, s>>>(ws.marker, ws.tmp, g);
+    morph5<false><<<blocks, kThreads, 0, s>>>(ws.tmp, ws.marker, g);
+    if ((err = cudaGetLastError())) return err;
+  }
   // 5. marker CCL + removal, watershed seeds
   if ((err = ccl(ws.marker, 1, ws.parent, g, blocks, s))) return err;
-  if ((err = sizes(ws.marker, ws.parent, ws.cnt, g, blocks, s))) return err;
+  if (rm && (err = sizes(ws.marker, ws.parent, ws.cnt, g, blocks, s)))
+    return err;
+  if (skip == kSkipWs) {
+    marker_out<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt,
+                                           marker_min, out, g);
+    return cudaGetLastError();
+  }
   ws_init<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt,
-                                      marker_min_size, ws.blob, ws.energy_sh,
+                                      marker_min, ws.blob, ws.energy_sh,
                                       ws.cost, ws.packed, g);
   if ((err = cudaGetLastError())) return err;
   // 6. phase 1: packed minimax cost
-  rc = relax(ws.flag, g.total + 1, s, [&] {
-    ws_cost_sweep<<<blocks, kThreads, 0, s>>>(ws.cost, ws.energy_sh, ws.blob,
-                                              g, sweep_order, ws.flag);
-  });
+  rc = relax_cost(ws.cost, ws.energy_sh, ws.blob, ws.flag, g, blocks,
+                  sweep_order, s);
   if (rc) return rc;
+  if (skip == kSkipWsPhase2) {
+    phase1_out<<<blocks, kThreads, 0, s>>>(ws.blob, ws.cost, ws.packed, out,
+                                           g.total);
+    return cudaGetLastError();
+  }
   // 7. phase 2: (hops, label) ties along cost-attaining edges
-  rc = relax(ws.flag, g.total + 1, s, [&] {
-    ws_label_sweep<<<blocks, kThreads, 0, s>>>(ws.cost, ws.energy_sh, ws.blob,
-                                               ws.packed, g, sweep_order,
-                                               ws.flag);
-  });
+  rc = relax_labels(ws.cost, ws.energy_sh, ws.blob, ws.packed, ws.flag, g,
+                    blocks, sweep_order, s);
   if (rc) return rc;
   ws_final<<<blocks, kThreads, 0, s>>>(ws.blob, ws.packed, out, g.total);
+  return cudaGetLastError();
+}
+
+extern "C" int64_t hnt_watershed_workspace_bytes(int64_t total) {
+  return carve_ws(nullptr, total, nullptr);
+}
+
+// K2: energy_q int32, markers int32, mask uint8 [n, h, w] -> out int32
+// [n, h, w]; workspace: hnt_watershed_workspace_bytes(n * h * w) bytes,
+// 256-aligned. Returns 0 or a cudaError_t.
+extern "C" int hnt_watershed(const void* energy_p, const void* markers_p,
+                             const void* mask_p, void* out_p, void* ws_p,
+                             int n, int h, int w, int sweep_order,
+                             void* stream) {
+  const uint8_t* mask = (const uint8_t*)mask_p;
+  cudaStream_t s = (cudaStream_t)stream;
+  Geom g{h, w, (int64_t)h * w, (int64_t)n * h * w};
+  unsigned blocks = (unsigned)((g.total + kThreads - 1) / kThreads);
+  WsWorkspace ws;
+  carve_ws((char*)ws_p, g.total, &ws);
+  ws_seed<<<blocks, kThreads, 0, s>>>((const int*)energy_p,
+                                      (const int*)markers_p, mask,
+                                      ws.energy_sh, ws.cost, ws.packed,
+                                      g.total);
+  cudaError_t err = cudaGetLastError();
+  if (err) return err;
+  int rc = relax_cost(ws.cost, ws.energy_sh, mask, ws.flag, g, blocks,
+                      sweep_order, s);
+  if (rc) return rc;
+  rc = relax_labels(ws.cost, ws.energy_sh, mask, ws.packed, ws.flag, g,
+                    blocks, sweep_order, s);
+  if (rc) return rc;
+  ws_final<<<blocks, kThreads, 0, s>>>(mask, ws.packed, (int*)out_p, g.total);
   return cudaGetLastError();
 }

@@ -14,10 +14,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hover_net_tpu.ops.instance_table import emit_nuc_json
-
 from ..models.checkpoints import load_torch_tar
 from ..models.hovernet import HoVerNet, HoVerNetConfig
+from ..ops.instance_table import emit_nuc_json
 
 
 def resolve_device(device) -> torch.device:
@@ -71,7 +70,7 @@ class InferManagerBase:
 def save_json(path, inst_info, mag=None):
     """{mag, nuc: {id: {...}}} with ndarray -> list conversion. Entries of
     the standard 5-field schema go through the native emitter
-    (hover_net_tpu.ops.instance_table.emit_nuc_json)."""
+    (ops/instance_table.emit_nuc_json)."""
     payload = _save_json_native(path, inst_info, mag)
     if payload is not None:
         return payload

@@ -26,16 +26,15 @@ import numpy as np
 import scipy.io as sio
 import torch
 
-from hover_net_tpu.data.tiling import bucket_grid_dim, prepare_tile_patching
-from hover_net_tpu.metrics import remap_label
-from hover_net_tpu.ops.instance_table import apply_lut
-from hover_net_tpu.ops.post_proc_host import (
+from ..data.tiling import bucket_grid_dim, prepare_tile_patching
+from ..metrics.stats import remap_label
+from ..ops.instance_table import apply_lut
+from ..ops.post_proc_host import (
     extract_instance_info,
     instance_info_from_tables,
 )
-from hover_net_tpu.utils.qupath import to_qupath
-from hover_net_tpu.utils.viz import overlay_instances
-
+from ..utils.qupath import to_qupath
+from ..utils.viz import overlay_instances
 from . import base
 from .steps import make_tile_pipeline
 

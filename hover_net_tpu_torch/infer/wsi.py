@@ -50,19 +50,18 @@ import cv2
 import numpy as np
 import torch
 
-from hover_net_tpu.data.tiling import (
+from ..data.tiling import (
     select_patches_in_chunk,
     wsi_chunk_patch_grids,
     wsi_tile_grids,
 )
-from hover_net_tpu.infer.wsi_handler import get_file_handler
-from hover_net_tpu.metrics import remap_label
-from hover_net_tpu.ops import cc_np
-from hover_net_tpu.ops.post_proc_host import extract_instance_info
-
+from ..metrics.stats import remap_label
+from ..ops import cc_np
 from ..ops.post_proc_device import compact_labels_u16, proc_np_hv_batch
+from ..ops.post_proc_host import extract_instance_info
 from . import base
 from .steps import extract_patches, infer_output
+from .wsi_handler import get_file_handler
 
 logger = logging.getLogger("hover_net_tpu_torch")
 

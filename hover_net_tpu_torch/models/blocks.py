@@ -11,7 +11,7 @@ Geometry matches the JAX package exactly:
   bottom/right (`same_pad`), not torch's symmetric `padding=1`;
 - BatchNorm eps 1e-5 (torch's default);
 - the dense concat center-crops the running map with
-  hover_net_tpu.utils.crops.crop_to_shape;
+  utils/crops.crop_to_shape;
 - the grouped decoder conv is a native `groups=4` conv.
 """
 
@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hover_net_tpu.utils.crops import crop_to_shape
+from ..utils.crops import crop_to_shape
 
 BN_EPS = 1e-5
 

@@ -23,8 +23,6 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from hover_net_tpu.utils.crops import crop_op
-
 from ..ops.fused_block_cuda import (
     BF16,
     _dot,
@@ -32,6 +30,7 @@ from ..ops.fused_block_cuda import (
     fused_block_apply,
     kernel_units,
 )
+from ..utils.crops import crop_op
 from .blocks import BN_EPS, ResidualBlock
 from .hovernet import HoVerNet
 

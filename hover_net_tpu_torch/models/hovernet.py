@@ -26,8 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hover_net_tpu.utils.crops import crop_op
-
+from ..utils.crops import crop_op
 from .blocks import (
     ConvBNRelu,
     DenseBlock,

@@ -1,5 +1,6 @@
-"""Kernel K1: the post-processing tail as one hand-written CUDA kernel
-chain (csrc/post_proc_tail.cu), and its plain PyTorch version.
+"""Kernels K1 and K4: the post-processing tail as one hand-written CUDA
+kernel chain (csrc/post_proc_tail.cu), its stage-ablation variants, and
+their plain PyTorch version.
 
 `proc_tail(blb, sob)` takes the thresholded nuclei mask and the Sobel
 energy ([N, H, W] bool and float32) and returns int32 seed-index
@@ -17,7 +18,17 @@ labels are those of the JAX exact path, `proc_np_hv_batch(exact=True)`.
   at the repository root, keyed by a hash of the source; a failed build
   raises. There is no fallback.
 
-`proc_tail.launches` counts the kernel launches (one per call).
+K4 is the same entry with `skip` naming one stage to leave out (SKIPS):
+"ws" returns the marker labels with no watershed, "ws_phase2" runs the
+watershed's phase 1 only, "rmsmall" skips both small-object removals,
+"fill" skips fill-holes and "open" the 5x5 opening. It replaces the TPU
+kernel of scripts/probe_pp_stages.py (`kernel` in `make_variant`), with
+one difference: the TPU probe's blur fills zeros at its window edge,
+while K4 blurs as K1 does (reflect-101), because it exists to time K1's
+stages (cli/probe_pp_stages.py). skip="none" is K1.
+
+`proc_tail.launches` counts K1's launches (skip="none"),
+`proc_tail.skip_launches` K4's (any other skip); one per call.
 """
 
 from __future__ import annotations
@@ -26,15 +37,16 @@ import ctypes
 
 import torch
 
-from hover_net_tpu.ops.cc_np import ellipse_structuring_element
-
 from . import filters
+from .cc_np import ellipse_structuring_element
 from .nvcc_build import build_library
 from .post_proc_device import (
+    INT_MAX,
     NUM_LEVELS,
     connected_components,
     fill_holes,
     remove_small,
+    watershed_cost,
     watershed_flood,
 )
 
@@ -43,22 +55,65 @@ from .post_proc_device import (
 # fixpoints are unique, so every order gives the same labels)
 SWEEP_ORDERS = (0, 1, 2)
 _STRIDE = 7919  # order 2 visits pixel (t * _STRIDE) % total
+# K4's stage switch: the kernel's `skip` code is the index here
+SKIPS = ("none", "ws", "ws_phase2", "rmsmall", "fill", "open")
 
 
-def proc_tail_reference(blb: torch.Tensor, sob: torch.Tensor,
-                        marker_min_size: int = 10, blob_min_size: int = 10
-                        ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device."""
-    blb = remove_small(connected_components(blb), blob_min_size) > 0
+def check_sweep_order(sweep_order: int, total: int) -> None:
+    """Raise unless the kernels accept `sweep_order` for `total` pixels."""
+    if sweep_order not in SWEEP_ORDERS or (
+            sweep_order == 2 and total % _STRIDE == 0):
+        raise ValueError(f"sweep_order {sweep_order} for {total} px")
+
+
+def _skip_code(skip: str) -> int:
+    if skip not in SKIPS:
+        raise ValueError(f"skip must be one of {SKIPS}, got {skip!r}")
+    return SKIPS.index(skip)
+
+
+def watershed_inputs(blb: torch.Tensor, sob: torch.Tensor,
+                     marker_min_size: int = 10, blob_min_size: int = 10,
+                     skip: str = "none"):
+    """The stages of the plain version before the watershed: (energy_q
+    int32, markers int32, flood mask bool), each [N, H, W]. K1's labels
+    are `watershed_flood` of these (and K2's, fed them)."""
+    _skip_code(skip)
+    rm = skip != "rmsmall"
+    blb = connected_components(blb)
+    blb = (remove_small(blb, blob_min_size) if rm else blb) > 0
     blb_f = blb.float()
     overall = torch.clamp_min(sob - (1.0 - blb_f), 0.0)
     dist = -filters.gaussian_blur_3x3((1.0 - overall) * blb_f)
     energy_q = torch.round((dist + 1.0) * float(NUM_LEVELS - 1)).to(
         torch.int32)
     selem = ellipse_structuring_element(5, 5)
-    marker = fill_holes(blb & ~(overall >= 0.4))
-    marker = filters.dilate(filters.erode(marker, selem), selem)
-    markers = remove_small(connected_components(marker), marker_min_size)
+    marker = blb & ~(overall >= 0.4)
+    if skip != "fill":
+        marker = fill_holes(marker)
+    if skip != "open":
+        marker = filters.dilate(filters.erode(marker, selem), selem)
+    markers = connected_components(marker)
+    if rm:
+        markers = remove_small(markers, marker_min_size)
+    return energy_q, markers, blb
+
+
+def proc_tail_reference(blb: torch.Tensor, sob: torch.Tensor,
+                        marker_min_size: int = 10, blob_min_size: int = 10,
+                        skip: str = "none") -> torch.Tensor:
+    """Plain PyTorch version of the kernel (K1, or K4 with `skip`), on
+    any device."""
+    energy_q, markers, blb = watershed_inputs(blb, sob, marker_min_size,
+                                              blob_min_size, skip)
+    if skip == "ws":
+        return markers
+    if skip == "ws_phase2":
+        cost = watershed_cost(energy_q, markers, blb)
+        lab0 = torch.where((markers > 0) & blb, markers,
+                           torch.zeros_like(markers))
+        return torch.where((cost != INT_MAX) & blb, lab0 + (cost & 0xFF),
+                           torch.zeros_like(cost))
     return watershed_flood(energy_q, markers, blb)
 
 
@@ -71,19 +126,28 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hnt_proc_tail.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.hnt_watershed_workspace_bytes.restype = ctypes.c_int64
+    lib.hnt_watershed_workspace_bytes.argtypes = [ctypes.c_int64]
+    lib.hnt_watershed.restype = ctypes.c_int
+    lib.hnt_watershed.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.hnt_error_string.restype = ctypes.c_char_p
     lib.hnt_error_string.argtypes = [ctypes.c_int]
 
 
 def build() -> ctypes.CDLL:
-    """Compile csrc/post_proc_tail.cu (if this source has no library yet)
-    and load it. Raises on any failure."""
+    """Compile csrc/post_proc_tail.cu (K1, K2 and K4; if this source has
+    no library yet) and load it. Raises on any failure."""
     return build_library("post_proc_tail", _bind)
 
 
-def _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size, sweep_order):
+def _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size, sweep_order,
+                    skip):
     n, h, w = blb.shape
     if sob.shape != blb.shape or sob.device != blb.device:
         raise ValueError(f"blb {tuple(blb.shape)} on {blb.device} and sob "
@@ -94,9 +158,8 @@ def _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size, sweep_order):
         raise TypeError(f"blb must be bool or uint8, got {blb.dtype}")
     if h < 2 or w < 2 or n * h * w >= 2**31:
         raise ValueError(f"unsupported map shape {tuple(blb.shape)}")
-    if sweep_order not in SWEEP_ORDERS or (
-            sweep_order == 2 and (n * h * w) % _STRIDE == 0):
-        raise ValueError(f"sweep_order {sweep_order} for {n * h * w} px")
+    check_sweep_order(sweep_order, n * h * w)
+    code = _skip_code(skip)
     blb = blb.contiguous().view(torch.uint8)
     sob = sob.contiguous()
     lib = build()
@@ -108,27 +171,33 @@ def _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size, sweep_order):
         err = lib.hnt_proc_tail(blb.data_ptr(), sob.data_ptr(),
                                 out.data_ptr(), ws.data_ptr(), n, h, w,
                                 marker_min_size, blob_min_size, sweep_order,
-                                stream)
+                                code, stream)
     if err:
         raise RuntimeError("post-processing kernel failed: "
                            + lib.hnt_error_string(err).decode())
-    proc_tail.launches += 1
+    if code:
+        proc_tail.skip_launches += 1
+    else:
+        proc_tail.launches += 1
     return out
 
 
 def proc_tail(blb: torch.Tensor, sob: torch.Tensor, marker_min_size: int = 10,
-              blob_min_size: int = 10, sweep_order: int = 0) -> torch.Tensor:
+              blob_min_size: int = 10, sweep_order: int = 0,
+              skip: str = "none") -> torch.Tensor:
     """[N, H, W] nuclei mask (bool/uint8) + Sobel energy (float32) ->
-    int32 [N, H, W] seed-index labels. CUDA tensors run the kernel
+    int32 [N, H, W] seed-index labels (K1), or with `skip` the output of
+    K1 without that stage (K4). CUDA tensors run the kernel
     (`sweep_order` picks its relaxation order), CPU tensors the plain
     version."""
     if blb.device.type == "cuda":
         return _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size,
-                               sweep_order)
+                               sweep_order, skip)
     if blb.device.type != "cpu":
         raise ValueError(f"no post-processing path for {blb.device}")
     return proc_tail_reference(blb.bool(), sob, marker_min_size,
-                               blob_min_size)
+                               blob_min_size, skip)
 
 
 proc_tail.launches = 0
+proc_tail.skip_launches = 0

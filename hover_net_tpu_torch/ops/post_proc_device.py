@@ -135,6 +135,26 @@ def _shift(x: torch.Tensor, dim: int, amt: int, fill) -> torch.Tensor:
 _NEIGHBOURS = ((1, 1), (1, -1), (2, 1), (2, -1))
 
 
+def watershed_cost(energy_q: torch.Tensor, markers: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Phase 1 of the marker watershed: the packed minimax cost
+    `(level << 15) | hops` of every pixel of `mask`, relaxed to its
+    fixpoint with synchronous 4-neighbour sweeps (INT_MAX where no
+    marker reaches). Arguments as for `watershed_flood`."""
+    seeded = (markers > 0) & mask
+    energy_sh = energy_q << HOP_BITS
+    cost = torch.where(seeded, energy_sh, torch.full_like(energy_sh, INT_MAX))
+    while True:
+        best = cost
+        for dim, amt in _NEIGHBOURS:
+            best = torch.minimum(
+                best, cross_cost(_shift(cost, dim, amt, INT_MAX), energy_sh))
+        new = torch.where(mask, best, cost)
+        if torch.equal(new, cost):
+            return cost
+        cost = new
+
+
 def watershed_flood(energy_q: torch.Tensor, markers: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """Marker watershed by minimax path cost, in two phases.
@@ -143,23 +163,13 @@ def watershed_flood(energy_q: torch.Tensor, markers: torch.Tensor,
     (0 = none); mask: bool flood region. Returns int32 labels (0 outside
     the mask or where no marker reaches).
 
-    Phase 1 relaxes the packed cost to its fixpoint with synchronous
-    4-neighbour sweeps. Phase 2 relaxes (total hops, label) along the
-    edges that attain the fixed costs."""
+    Phase 1 (`watershed_cost`) relaxes the packed cost to its fixpoint.
+    Phase 2 relaxes (total hops, label) along the edges that attain the
+    fixed costs."""
+    cost = watershed_cost(energy_q, markers, mask)
     seeded = (markers > 0) & mask
     energy_sh = energy_q << HOP_BITS
     imax = torch.full_like(energy_sh, INT_MAX)
-    cost = torch.where(seeded, energy_sh, imax)
-    while True:
-        best = cost
-        for dim, amt in _NEIGHBOURS:
-            best = torch.minimum(
-                best, cross_cost(_shift(cost, dim, amt, INT_MAX), energy_sh))
-        new = torch.where(mask, best, cost)
-        if torch.equal(new, cost):
-            break
-        cost = new
-
     sec = torch.where(seeded, torch.zeros_like(imax), imax)
     lab = torch.where(seeded, markers, torch.zeros_like(markers))
     while True:
@@ -239,7 +249,7 @@ def compact_labels_u16(inst: torch.Tensor):
 
 
 # 8-neighbour directions (E, NE, N, NW, W, SW, S, SE): the bit order of
-# the native COO contour tracer (native/instance_table.cpp)
+# the native COO contour tracer (csrc/instance_table.cpp)
 _DIRS8 = ((0, 1), (-1, 1), (-1, 0), (-1, -1),
           (0, -1), (1, -1), (1, 0), (1, 1))
 

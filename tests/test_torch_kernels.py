@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from hover_net_tpu.ops.targets import gen_instance_hv_map
+from hover_net_tpu_torch.ops.targets import gen_instance_hv_map
 from hover_net_tpu_torch.ops import post_proc_device as tpp
 from hover_net_tpu_torch.ops.post_proc_cuda import (
     proc_tail,

@@ -1,0 +1,78 @@
+"""The port stands alone: nothing in hover_net_tpu_torch/ or chip_smoke.py
+imports jax, flax or the JAX package hover_net_tpu, directly or through
+another module."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "hover_net_tpu")
+
+
+def port_sources():
+    """Every .py file of the port, and chip_smoke.py (repo-relative)."""
+    out = ["chip_smoke.py"]
+    for root, _, files in os.walk(os.path.join(REPO, "hover_net_tpu_torch")):
+        out += [os.path.relpath(os.path.join(root, f), REPO)
+                for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def forbidden_imports(path):
+    """(line, module) of every import of a FORBIDDEN package in `path`."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [(node.lineno, n) for n in names
+                if n.split(".")[0] in FORBIDDEN]
+    return bad
+
+
+def test_forbidden_imports_are_found(tmp_path):
+    """The walk itself sees plain, dotted, from- and nested imports, and
+    passes the port's own package and relative imports."""
+    src = ("import os\nimport jax.numpy as jnp\n"
+           "from hover_net_tpu.ops import cc_np\n"
+           "import hover_net_tpu_torch\nfrom . import filters\n"
+           "def f():\n    import flax\n")
+    path = tmp_path / "probe.py"
+    path.write_text(src)
+    assert [n for _, n in forbidden_imports(str(path))] == [
+        "jax.numpy", "hover_net_tpu.ops", "flax"]
+
+
+@pytest.mark.parametrize("path", port_sources())
+def test_source_imports_no_jax_package(path):
+    assert forbidden_imports(path) == [], path
+
+
+def test_port_modules_import_without_jax():
+    """A fresh interpreter (tests/conftest.py imports jax in this one)
+    imports every module of the port and chip_smoke.py; neither jax nor
+    any module of the JAX package is loaded."""
+    code = (
+        "import pkgutil, sys\n"
+        "import hover_net_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for n in names: __import__(n)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'hover_net_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 30
