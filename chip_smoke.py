@@ -7,6 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels from csrc/, one nvcc per source, started
    together: post_proc_tail.cu (K1, K2 and K4) and fused_block.cu (K3);
+   prints K3's registers (ptxas) and its count of HGMMA (wgmma) and
+   UTMALDG (TMA load) instructions (cuobjdump), and fails without both;
 3. K1 against its plain PyTorch version on the card: identical labels on
    a 1148^2 canvas of synthetic nuclei mirrored about a 1000^2 source
    (with its valid mask), a noisy map, an empty map and a 164^2 map;
@@ -24,8 +26,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. K3, the fused-block encoder, against its plain PyTorch version at the
    width-64 shapes of its four block calls (d0, d1, d2a, d2b) on a batch
    of 32 patches: error within 3% of the output scale, median times of
-   the kernel, of the plain version and of the standard cuDNN modules;
-   two tile sizes and the 3 + 3 split of d2 give bit-identical output;
+   the kernel (with TFLOP/s, share of the bound and the design's own
+   bytes per call; each launch's device time under torch.profiler, with
+   its TFLOP/s and share of its byte floor) and of the plain version,
+   and of the standard cuDNN
+   modules twice: the default path and channels-last with
+   cudnn.benchmark (the faster is the library time); two tile sizes and
+   the 3 + 3 split of d2 give bit-identical output;
    the fused forward agrees with the float32 standard forward on one
    patch within 15%;
 7. the WSI path as a user runs it: WSIInferManager with HNT_FUSED_ENC=1,
@@ -181,6 +188,41 @@ def median_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def launch_us(fn, kernel, n_launches, reps, tries=20):
+    """(median device µs of each launch of `kernel` that `fn` makes over
+    `reps` runs under torch.profiler, runs the profiler did not see
+    whole). The first profiled run is a warm-up and is discarded. The
+    profiler can miss a launch now and then, so a run that does not show
+    all `n_launches` is run again, up to `tries` runs in all; the times
+    are None when fewer than `reps` runs were whole. The split is only
+    printed: each kernel's time comes from CUDA events (median_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    runs, missed = [], []
+    for k in range(tries + 1):
+        if len(runs) == reps:
+            break
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        times = [e.device_time for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if k == 0:
+            continue
+        if len(times) == n_launches:
+            runs.append(times)
+        else:
+            missed.append(len(times))
+    if len(runs) < reps:
+        return None, missed
+    return ([statistics.median(r[i] for r in runs)
+             for i in range(n_launches)], missed)
 
 
 def check_kernel(dev):
@@ -355,9 +397,28 @@ def finalize_real_nuclei(mgr, canvas):
             raise AssertionError(f"nucleus {k} differs")
 
 
+def cuobjdump_path():
+    """The toolkit's cuobjdump, or the copy Triton's package carries."""
+    found = shutil.which("cuobjdump")
+    cands = [found] if found else []
+    cands.append(os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "cuobjdump"))
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("no cuobjdump: cannot read K3's SASS")
+
+
 def build_kernels():
     """Phase 2: post_proc_tail.cu (K1, K2, K4) and fused_block.cu (K3)
-    from csrc/, one nvcc each, started together."""
+    from csrc/, one nvcc each, started together; K3's registers from
+    ptxas and its wgmma (HGMMA) and TMA load (UTMALDG) instructions."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hover_net_tpu_torch.ops import fused_block_cuda, post_proc_cuda
@@ -365,15 +426,29 @@ def build_kernels():
     def timed(build):
         t0 = time.perf_counter()
         lib = build()
-        return time.perf_counter() - t0, os.path.relpath(lib._name, ROOT)
+        return time.perf_counter() - t0, lib._name
 
     with ThreadPoolExecutor(max_workers=2) as ex:
         futs = {name: ex.submit(timed, mod.build) for name, mod in (
             ("K1/K2/K4", post_proc_cuda), ("K3", fused_block_cuda))}
+        libs = {}
         for name, fut in futs.items():
-            secs, path = fut.result()
+            secs, libs[name] = fut.result()
             log(f"build: {name} built by nvcc and loaded in {secs:.3f} s "
-                f"({path})")
+                f"({os.path.relpath(libs[name], ROOT)})")
+    k3_lib = libs["K3"]
+    with open(os.path.splitext(k3_lib)[0] + ".log") as f:
+        for line in f:
+            if "Used" in line or "spill" in line:
+                log(f"build: K3 ptxas: {line.strip()}")
+    sass = subprocess.run([cuobjdump_path(), "-sass", k3_lib],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sum(op in line for line in sass.splitlines())
+              for op in ("HGMMA", "UTMALDG")}
+    log(f"build: K3 SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
+        f"UTMALDG instructions")
+    if not counts["HGMMA"] or not counts["UTMALDG"]:
+        raise AssertionError("K3's SASS has no wgmma or no TMA load")
 
 
 def make_wsi_inputs(work):
@@ -399,7 +474,13 @@ def make_wsi_inputs(work):
 def check_k3(model):
     """Phase 6: K3 against its plain version at the four block calls of
     the width-64 encoder on a batch of 32 patches (each call fed the
-    kernel's previous output); tile and split invariance; times."""
+    kernel's previous output), with per-call TFLOP/s, share of the bound
+    and the design's own bytes, and the per-launch split; the cuDNN
+    modules twice (the default
+    path, and channels-last with cudnn.benchmark); tile and split
+    invariance."""
+    import copy
+
     import torch
 
     from hover_net_tpu_torch.models.encoder_fused import (
@@ -410,6 +491,7 @@ def check_k3(model):
     from hover_net_tpu_torch.ops.fused_block_cuda import (
         fused_block_apply,
         fused_block_reference,
+        launch_plan,
     )
 
     dev = next(model.parameters()).device
@@ -421,18 +503,23 @@ def check_k3(model):
         x = model.conv0(imgs.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0)
     x = x.permute(0, 2, 3, 1).contiguous()
     inputs, ms, plain_ms, max_err = {}, 0.0, 0.0, 0.0
-    nbytes, flops = 0, 0
+    nbytes, flops, design = 0, 0, 0
     for name, _, _, kw in CALLS:
         packed, units = pk[name]
         inputs[name] = x
         got = fused_block_apply(x, packed, units=units, **kw)
         want = fused_block_reference(x, packed, **kw)
         torch.cuda.synchronize()
-        # each weight is one product over every pixel it sees: the unit-0
-        # conv1 at the input's resolution, every other one at the output's
-        nbytes += tensor_bytes(x, got, *packed.values())
-        flops += sum(2 * w.numel() * (x if k == "w1_0" else got)[..., 0]
-                     .numel() for k, w in packed.items() if k[0] == "w")
+        # each launch's FLOPs, and the bytes the design itself moves:
+        # every launch's own inputs, weights, residual and output (conv1
+        # and conv2 outputs round-trip through device memory)
+        plan = launch_plan(x.shape, units[0]["w1t"].shape[0],
+                           units[0]["w3t"].shape[0], **kw)
+        c_bytes = tensor_bytes(x, got, *packed.values())
+        c_flops = sum(f for _, f, _ in plan)
+        c_design = sum(b for _, _, b in plan)
+        nbytes, flops, design = (nbytes + c_bytes, flops + c_flops,
+                                 design + c_design)
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
         scale = want.float().abs().max().item()
@@ -440,28 +527,79 @@ def check_k3(model):
         t_k = median_ms(lambda: fused_block_apply(x, packed, units=units,
                                                   **kw), 10)
         t_p = median_ms(lambda: fused_block_reference(x, packed, **kw), 3)
+        b_ms, b_by = bound(c_bytes, c_flops)
         log(f"K3 vs plain {name} {tuple(x.shape)} -> {tuple(got.shape)}: "
             f"max |delta| {err:.6g} = {err / scale:.5f} of the output scale "
             f"{scale:.6g}, {share:.4f} of elements differ; kernel "
-            f"{t_k:.3f} ms, plain {t_p:.3f} ms (median, CUDA events)")
+            f"{t_k:.3f} ms, plain {t_p:.3f} ms (median, CUDA events); "
+            f"{c_flops / t_k / 1e9:.1f} TFLOP/s, {100 * b_ms / t_k:.1f} % of "
+            f"its bound {b_ms:.3f} ms ({b_by}); the design moves "
+            f"{c_design / 1e9:.3f} GB = {c_design / HBM_BYTES_PER_S * 1e3:.3f}"
+            f" ms at {HBM_BYTES_PER_S / 1e12} TB/s")
         if not torch.isfinite(got.float()).all() or err > 0.03 * scale:
             raise AssertionError(f"K3 disagrees with its plain version on "
                                  f"{name}")
+        us, missed = launch_us(lambda: fused_block_apply(
+            x, packed, units=units, **kw), "conv_gemm", len(plan), 5)
+        if missed:
+            log(f"  K3 {name}: the profiler saw {missed} conv_gemm launches "
+                f"in {len(missed)} runs, not {len(plan)}; those runs were "
+                f"dropped from the split")
+        if us is None:
+            log(f"  K3 {name} per launch: not measured (too few whole "
+                f"profiled runs)")
+            us = []
+        else:
+            log(f"  K3 {name} per launch (median of 5, torch.profiler): "
+                f"{sum(us) / 1e3:.3f} ms in {len(us)} launches")
+        for (what, l_flops, l_bytes), t in zip(plan, us):
+            floor = l_bytes / HBM_BYTES_PER_S * 1e6
+            log(f"    {what:18s} {t:9.1f} us {l_flops / t / 1e6:7.1f} TFLOP/s"
+                f" {l_bytes / 1e9:6.3f} GB = {floor:7.1f} us at "
+                f"{HBM_BYTES_PER_S / 1e12} TB/s ({100 * floor / t:5.1f} %)")
         ms, plain_ms, max_err = ms + t_k, plain_ms + t_p, max(max_err, err)
         x = got
+    k3_bound = bound(nbytes, flops)
     log(f"K3 encoder d0..d2 at batch {K3_BATCH}: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms; {flops / 1e12:.4f} TFLOP, {nbytes / 1e6:.3f} MB")
-    library_ms = 0.0
+        f"{plain_ms:.3f} ms; {flops / 1e12:.4f} TFLOP, {nbytes / 1e6:.3f} MB; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * k3_bound[0] / ms:.1f} % of "
+        f"the bound {k3_bound[0]:.3f} ms ({k3_bound[1]}); the design moves "
+        f"{design / 1e9:.3f} GB = {design / HBM_BYTES_PER_S * 1e3:.3f} ms")
 
-    with torch.no_grad():  # the standard path: cuDNN modules, bf16
-        for name, block, src in (("d0", model.d0, "d0"),
-                                 ("d1", model.d1, "d1"),
-                                 ("d2", model.d2, "d2a")):
+    # the library yardstick, never called by the port: the standard cuDNN
+    # modules on the same inputs, (a) the default path (NHWC memory
+    # viewed as NCHW, weights as loaded, cudnn.benchmark off) and (b)
+    # channels-last weights and input with cudnn.benchmark on
+    blocks = (("d0", model.d0, "d0"), ("d1", model.d1, "d1"),
+              ("d2", model.d2, "d2a"))
+    lib_ms = {"default": 0.0, "channels_last": 0.0}
+    prev = torch.backends.cudnn.benchmark
+    with torch.no_grad():
+        for name, block, src in blocks:
             xin = inputs[src].permute(0, 3, 1, 2)
             t_c = median_ms(lambda: block(xin), 10)
-            library_ms += t_c
-            log(f"cuDNN standard module {name} at batch {K3_BATCH}: "
-                f"{t_c:.3f} ms (median, CUDA events)")
+            lib_ms["default"] += t_c
+            log(f"cuDNN standard module {name} at batch {K3_BATCH} "
+                f"(default): {t_c:.3f} ms (median, CUDA events)")
+        torch.backends.cudnn.benchmark = True
+        try:
+            for name, block, src in blocks:
+                cl = copy.deepcopy(block).to(memory_format=torch.channels_last)
+                xin = inputs[src].permute(0, 3, 1, 2).contiguous(
+                    memory_format=torch.channels_last)
+                t_c = median_ms(lambda: cl(xin), 10)
+                lib_ms["channels_last"] += t_c
+                log(f"cuDNN standard module {name} at batch {K3_BATCH} "
+                    f"(channels-last, cudnn.benchmark): {t_c:.3f} ms (median,"
+                    f" CUDA events)")
+                del cl
+        finally:
+            torch.backends.cudnn.benchmark = prev
+    library_ms = min(lib_ms.values())
+    log(f"cuDNN d0+d1+d2 at batch {K3_BATCH}: default "
+        f"{lib_ms['default']:.3f} ms, channels-last + benchmark "
+        f"{lib_ms['channels_last']:.3f} ms; K3 {ms:.3f} ms is "
+        f"{library_ms / ms:.2f}x the faster one's speed")
 
     kws = {name: kw for name, _, _, kw in CALLS}
 
@@ -470,19 +608,19 @@ def check_k3(model):
         return fused_block_apply(x, packed, units=units, **kws[name], **extra)
 
     x0, x1 = inputs["d0"][:4].contiguous(), inputs["d1"][:4].contiguous()
-    same = (torch.equal(call("d0", x0), call("d0", x0, th=8))
-            and torch.equal(call("d1", x1), call("d1", x1, th=2)))
+    same = (torch.equal(call("d0", x0), call("d0", x0, th=2))
+            and torch.equal(call("d1", x1), call("d1", x1, th=32)))
     x2 = inputs["d2a"][:4].contiguous()
     whole = fused_block_apply(x2, pack_block(model.d2, 6), count=6, stride=2)
     chain = call("d2b", call("d2a", x2))
     split = torch.equal(whole, chain)
-    log(f"K3 tile sizes (auto vs 8x8 at d0, auto vs 2x2 at d1) "
+    log(f"K3 tile sizes (auto 8x16 vs 2x64 at d0, auto vs 32x4 at d1) "
         f"bit-identical: {same}; d2 as 3 + 3 units == 6 units bit for bit: "
         f"{split}")
     if not (same and split):
         raise AssertionError("K3 output depends on the tiling or the split")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err,
-            "bound": bound(nbytes, flops), "library_ms": library_ms}
+            "bound": k3_bound, "library_ms": library_ms}
 
 
 def check_fused_forward(model):

@@ -12,8 +12,10 @@ the same `packed` dict (models/encoder_fused.pack_block).
 - CPU tensors go to `fused_block_reference`, the plain version: the same
   rounding points (f32-accumulated products rounded to bf16, then the
   bf16 BN scale and offset and the ReLU, bf16 residual sums).
-- CUDA tensors go to the kernel, one launch per residual unit, with the
-  unit's intermediates in shared memory. The library is built by
+- CUDA tensors go to the kernel: per residual unit, one call into the
+  library that launches its three convolutions (TMA-fed wgmma implicit
+  GEMMs; unit 0's strided shortcut runs inside conv3's launch), the conv1
+  and conv2 outputs in bf16 scratch maps. The library is built by
   ops/nvcc_build.py at first use; a failed build raises. There is no
   fallback.
 
@@ -32,10 +34,8 @@ import torch.nn.functional as F
 from .nvcc_build import build_library
 
 BF16 = torch.bfloat16
-# output tiles (rows, cols) the wrapper tries, largest first: the largest
-# whose halo window fits shared memory wins
-TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2),
-         (1, 1))
+# nvcc's register and spill report goes to the build log beside the library
+K3_FLAGS = ("-Xptxas", "-v")
 
 
 # ------------------------------------------------------ the plain version
@@ -116,10 +116,8 @@ def fused_block_reference(x: torch.Tensor, packed: Dict[str, torch.Tensor],
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hnt_fused_unit_fits.restype = ctypes.c_int
-    lib.hnt_fused_unit_fits.argtypes = [i, i, i, i, i]
     lib.hnt_fused_unit.restype = ctypes.c_int
-    lib.hnt_fused_unit.argtypes = [p, p] + [i] * 9 + [p] * 13
+    lib.hnt_fused_unit.argtypes = [p] * 4 + [i] * 8 + [p] * 13
     lib.hnt_fused_error_string.restype = ctypes.c_char_p
     lib.hnt_fused_error_string.argtypes = [ctypes.c_int]
 
@@ -127,51 +125,71 @@ def _bind(lib: ctypes.CDLL) -> None:
 def build() -> ctypes.CDLL:
     """Compile csrc/fused_block.cu (if this source has no library yet)
     and load it. Raises on any failure."""
-    return build_library("fused_block", _bind)
-
-
-def pick_tile(lib: ctypes.CDLL, cin: int, c1: int, stride: int,
-              s_out: int) -> Tuple[int, int]:
-    """The largest output tile whose unit fits shared memory (the
-    kernel's own count of its halo windows and conv2 output against its
-    own limit)."""
-    for th, tw in TILES:
-        if (th <= s_out and tw <= s_out
-                and lib.hnt_fused_unit_fits(cin, c1, stride, th, tw)):
-            return th, tw
-    raise ValueError(f"no tile fits shared memory for cin {cin}, c1 {c1}")
+    return build_library("fused_block", _bind, K3_FLAGS)
 
 
 def kernel_units(packed: Dict[str, torch.Tensor], device, *, count: int,
                  has_u0: bool = True, final_bn: bool = True
                  ) -> List[Dict[str, torch.Tensor]]:
-    """The kernel's layout of `packed`: per-unit weights ([N][K] weights,
-    bf16 BN affines) on `device`. Callers that run a block many times
-    build it once (models/encoder_fused.pack_encoder)."""
+    """The kernel's layout of `packed`: per-unit weights, K-major as
+    [cout][taps][k] (a 1x1 weight [K, N] -> [N, K]; the 3x3 taps [9, K, N]
+    -> [N, 9, K]), and bf16 BN affines, on `device`. Callers that run a
+    block many times build it once (models/encoder_fused.pack_encoder)."""
 
     def b(t):
         return t.to(device=device, dtype=BF16).contiguous()
 
     def wt(w):  # [K, N] -> [N, K]
-        return b(w.transpose(-1, -2))
+        return b(w.t())
+
+    def wt3(w):  # [9, K, N] -> [N, 9, K]
+        return b(w.permute(2, 0, 1))
 
     units = []
     if has_u0:
         units.append(dict(wsct=wt(packed["wsc"]), w1t=wt(packed["w1_0"]),
                           s1=b(packed["s1_0"]), o1=b(packed["o1_0"]),
-                          w2t=wt(packed["w2_0"]), s2=b(packed["s2_0"]),
+                          w2t=wt3(packed["w2_0"]), s2=b(packed["s2_0"]),
                           o2=b(packed["o2_0"]), w3t=wt(packed["w3_0"])))
     for u in range(count - 1 if has_u0 else count):
         units.append(dict(pre_s=b(packed["ps"][u]), pre_o=b(packed["po"][u]),
                           w1t=wt(packed["w1r"][u]), s1=b(packed["s1r"][u]),
                           o1=b(packed["o1r"][u]),
-                          w2t=wt(packed["w2r"][9 * u:9 * u + 9]),
+                          w2t=wt3(packed["w2r"][9 * u:9 * u + 9]),
                           s2=b(packed["s2r"][u]), o2=b(packed["o2r"][u]),
                           w3t=wt(packed["w3r"][u])))
     if final_bn:
         units[-1]["sb"] = b(packed["sb"])
         units[-1]["ob"] = b(packed["ob"])
     return units
+
+
+def launch_plan(shape, c1: int, cout: int, *, count: int, stride: int,
+                has_u0: bool = True, **_) -> List[Tuple[str, int, int]]:
+    """(name, FLOPs, bytes) of each kernel launch of one block call on an
+    NHWC input of `shape` [n, s, s, cin], in launch order: conv1, conv2
+    and conv3 of every unit. Bytes count each input map, weight and
+    residual read once and the output written once; unit 0's conv3 reads
+    the input pixels its strided shortcut samples in place of a
+    residual."""
+    n, s, _, cin = shape
+    p_out = n * (s // stride) ** 2
+    plan = []
+    for u in range(count):
+        first = u == 0 and has_u0
+        c_in, p_in = (cin, n * s * s) if first else (cout, p_out)
+        plan.append((f"u{u}.conv1", 2 * p_in * c_in * c1,
+                     2 * (p_in * c_in + c_in * c1 + p_in * c1)))
+        plan.append((f"u{u}.conv2", 2 * p_out * 9 * c1 * c1,
+                     2 * (p_in * c1 + 9 * c1 * c1 + p_out * c1)))
+        flops = 2 * p_out * c1 * cout
+        nbytes = p_out * c1 + c1 * cout + 2 * p_out * cout
+        if first:
+            flops += 2 * p_out * cin * cout
+            nbytes += p_out * cin + cin * cout - p_out * cout
+        plan.append((f"u{u}.conv3" + ("+shortcut" if first else ""), flops,
+                     2 * nbytes))
+    return plan
 
 
 def _fused_block_cuda(x, packed, count, stride, has_u0, final_bn, th,
@@ -204,28 +222,30 @@ def _fused_block_cuda(x, packed, count, stride, has_u0, final_bn, th,
     s_out = s // stride
     lib = build()
     with torch.cuda.device(x.device):
-        bufs = [torch.empty((n, s_out, s_out, cout), dtype=BF16,
-                            device=x.device) for _ in range(min(2, count))]
+        out = torch.empty((n, s_out, s_out, cout), dtype=BF16,
+                          device=x.device)
+        # conv1's output at the unit input's size, conv2's at the output's
+        t = torch.empty((n, s, s, c1), dtype=BF16, device=x.device)
+        y = torch.empty((n, s_out, s_out, c1), dtype=BF16, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         src = x
         for k, u in enumerate(units):
             st = stride if (k == 0 and has_u0) else 1
-            u_cin = src.shape[-1]
-            tile = (th, th) if th else pick_tile(lib, u_cin, c1, st, s_out)
-            dst = bufs[k % len(bufs)]
             ptr = (lambda name: u[name].data_ptr() if name in u else None)
+            # units after the first update `out` in place (the rolling
+            # shortcut is the unit's own input)
             err = lib.hnt_fused_unit(
-                src.data_ptr(), dst.data_ptr(), n, src.shape[1], s_out,
-                u_cin, c1, cout, st, tile[0], tile[1],
+                src.data_ptr(), out.data_ptr(), t.data_ptr(), y.data_ptr(),
+                n, src.shape[1], s_out, src.shape[-1], c1, cout, st, th,
                 ptr("pre_s"), ptr("pre_o"), ptr("w1t"), ptr("s1"), ptr("o1"),
                 ptr("w2t"), ptr("s2"), ptr("o2"), ptr("w3t"), ptr("wsct"),
                 ptr("sb"), ptr("ob"), stream)
             if err:
                 raise RuntimeError("fused-block kernel failed: "
                                    + lib.hnt_fused_error_string(err).decode())
-            src = dst
+            src = out
     fused_block_apply.launches += 1
-    return src
+    return out
 
 
 def fused_block_apply(x: torch.Tensor, packed: Dict[str, torch.Tensor], *,
@@ -234,8 +254,9 @@ def fused_block_apply(x: torch.Tensor, packed: Dict[str, torch.Tensor], *,
                       units=None) -> torch.Tensor:
     """One fused residual block: NHWC bf16 [N, S, S, Cin] ->
     [N, S/stride, S/stride, Cout]. CUDA tensors run the kernel (`th` > 0
-    forces th x th output tiles, and the kernel refuses one that does not
-    fit shared memory; 0 picks the largest that fits; `units` is
+    forces output tiles of th rows x 128 / th columns, and the kernel
+    refuses a th that is not a power of two in [1, 128]; 0 picks 8 x 16,
+    or fewer columns on a map narrower than 16; `units` is
     `kernel_units(packed, ...)` when the caller keeps it, else it is
     built for this call), CPU tensors the plain version."""
     if x.device.type == "cuda":

@@ -10,6 +10,11 @@ few elements and the difference spreads through the following units; it
 must stay within the 3%-of-scale bf16 bound of
 tests/test_encoder_pallas.py. Tile size and the 3 + 3 split of d2 change
 nothing: those are bit-exact.
+
+Two widths: w32 (the narrowest, d0 with c1 = 32) at S = 32/16/8, and the
+model's own w64 channel counts (K up to 2304 = 9 x 256, N up to 1024) at
+S = 16/8 on a batch of 3, where an 8 x 16 output tile overhangs the map
+and stride 2 reads past its bottom and right edge.
 """
 
 import numpy as np
@@ -35,6 +40,15 @@ BLOCKS = {
     "d1": (4 * W, 2 * W, 8 * W, 4, 2, 32, dict(count=4)),
     "d2a": (8 * W, 4 * W, 16 * W, 6, 2, 16, dict(count=3, final_bn=False)),
     "d2b": (8 * W, 4 * W, 16 * W, 6, 2, 8,
+            dict(count=3, has_u0=False, unit_base=3)),
+}
+W64 = 64  # the model's width: the channel counts of models/encoder_fused.CALLS
+BLOCKS_W64 = {
+    "d0": (W64, W64, 4 * W64, 3, 1, 16, dict(count=3)),
+    "d1": (4 * W64, 2 * W64, 8 * W64, 4, 2, 16, dict(count=4)),
+    "d2a": (8 * W64, 4 * W64, 16 * W64, 6, 2, 16,
+            dict(count=3, final_bn=False)),
+    "d2b": (8 * W64, 4 * W64, 16 * W64, 6, 2, 8,
             dict(count=3, has_u0=False, unit_base=3)),
 }
 
@@ -63,23 +77,21 @@ def make_block(cin, c1, cout, count, stride, seed=0):
     return blk.eval()
 
 
-def case(name, cuda, seed=0):
+def case(name, cuda, seed=0, blocks=BLOCKS, batch=2):
     """(x, packed, call kwargs) of one block class on the card."""
-    cin, c1, cout, units, stride, s, kw = BLOCKS[name]
+    cin, c1, cout, units, stride, s, kw = blocks[name]
     blk = make_block(cin, c1, cout, units, stride, seed)
     packed = {k: v.to(cuda) for k, v in pack_block(blk, **kw).items()}
     has_u0 = kw.get("has_u0", True)
     ch = cin if has_u0 else cout
-    x = torch.randn((2, s, s, ch), generator=torch.Generator().manual_seed(
-        seed + 1)).to(cuda, BF16)
+    x = torch.randn((batch, s, s, ch), generator=torch.Generator(
+        ).manual_seed(seed + 1)).to(cuda, BF16)
     call = dict(count=kw["count"], stride=stride if has_u0 else 1,
                 has_u0=has_u0, final_bn=kw.get("final_bn", True))
     return x, packed, call
 
 
-@pytest.mark.parametrize("name", list(BLOCKS))
-def test_kernel_matches_plain(cuda, name):
-    x, packed, call = case(name, cuda)
+def check_matches_plain(x, packed, call):
     before = fused_block_apply.launches
     got = fused_block_apply(x, packed, **call)
     torch.cuda.synchronize()
@@ -92,6 +104,16 @@ def test_kernel_matches_plain(cuda, name):
     assert scale > 0 and err <= 0.03 * scale, (err, scale)
 
 
+@pytest.mark.parametrize("name", list(BLOCKS))
+def test_kernel_matches_plain(cuda, name):
+    check_matches_plain(*case(name, cuda))
+
+
+@pytest.mark.parametrize("name", list(BLOCKS_W64))
+def test_kernel_matches_plain_w64(cuda, name):
+    check_matches_plain(*case(name, cuda, blocks=BLOCKS_W64, batch=3))
+
+
 @pytest.mark.parametrize("name", ["d0", "d1"])
 def test_tile_size_does_not_change_output(cuda, name):
     x, packed, call = case(name, cuda, seed=3)
@@ -99,8 +121,16 @@ def test_tile_size_does_not_change_output(cuda, name):
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
-def test_split_chain_equals_unsplit_block(cuda):
-    cin, c1, cout, units, stride, s, _ = BLOCKS["d2a"]
+@pytest.mark.parametrize("name", list(BLOCKS_W64))
+def test_tile_size_does_not_change_output_w64(cuda, name):
+    x, packed, call = case(name, cuda, seed=4, blocks=BLOCKS_W64, batch=3)
+    want = fused_block_apply(x, packed, **call)
+    for th in (1, 4, 32, 128):
+        assert torch.equal(fused_block_apply(x, packed, th=th, **call), want)
+
+
+def check_split_chain(cuda, blocks):
+    cin, c1, cout, units, stride, s, _ = blocks["d2a"]
     blk = make_block(cin, c1, cout, units, stride, seed=5)
     x = torch.randn((2, s, s, cin), generator=torch.Generator().manual_seed(
         6)).to(cuda, BF16)
@@ -111,6 +141,14 @@ def test_split_chain_equals_unsplit_block(cuda):
                                              unit_base=3),
                             count=3, stride=1, has_u0=False)
     assert torch.equal(whole, out)
+
+
+def test_split_chain_equals_unsplit_block(cuda):
+    check_split_chain(cuda, BLOCKS)
+
+
+def test_split_chain_equals_unsplit_block_w64(cuda):
+    check_split_chain(cuda, BLOCKS_W64)
 
 
 def test_wrapper_checks_inputs(cuda):
@@ -136,7 +174,9 @@ def test_wrapper_checks_inputs(cuda):
             packed, cuda, count=2), **dict(call, count=3))
     x1, packed1, call1 = case("d1", cuda)
     with pytest.raises(RuntimeError):  # the kernel refuses an oversize tile
-        fused_block_apply(x1, packed1, th=32, **call1)
+        fused_block_apply(x1, packed1, th=256, **call1)
+    with pytest.raises(RuntimeError):  # and a th that is not a power of 2
+        fused_block_apply(x1, packed1, th=3, **call1)
 
 
 @pytest.mark.parametrize("name", list(BLOCKS))
