@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. K1 against its plain PyTorch version on the card: identical labels on
    a 1148^2 canvas of synthetic nuclei mirrored about a 1000^2 source
    (with its valid mask), a noisy map, an empty map and a 164^2 map;
-   median times of both at 1148^2;
+   median times of both at 1148^2, and K1's own split there (CUDA
+   events at its stage boundaries, the sweeps of each watershed phase);
 4. the tile path as a user runs it: TileInferManager, fast mode, width
    64, bf16 body, seeded random weights loaded from a `.tar`, three
    1000^2 images written as json, then one typed image (nr_types=5);
@@ -47,13 +48,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    buffer, from an mmap, and with K1's plain version in K1's place:
    identical instances all three ways; K1 gives the plain labels on
    every [4, 2048, 2048]-class window batch and on the whole map;
-   median times of both at the 2048^2 batch; against the single-shot K1
+   median times of both at the 2048^2 batch and K1's split there;
+   against the single-shot K1
    solve of the whole map, counts within 1% and AJI > 0.95;
 9. K2, the standalone watershed, against its plain version, element for
    element, in all three sweep orders: the 128^2 watershed test maps
    (seeds 0 and 1, a batch of 3) and the 1148^2 probe canvas (energy,
    markers and mask from the tail's stages before the watershed, where
-   K2 must also give K1's labels); median times at 1148^2; the blocked
+   K2 must also give K1's labels); median times and K2's split at
+   1148^2; the blocked
    entry at 800x700 with 160 nuclei (the op API as a user calls it):
    identical to the same entry's plain version on its [9, 512, 512]
    window batch, and against the whole-map K2 an equal instance count
@@ -225,6 +228,33 @@ def launch_us(fn, kernel, n_launches, reps, tries=20):
              for i in range(n_launches)], missed)
 
 
+def log_split(what, call, reps=10):
+    """Print the kernel's own split of `call(stats)` (ops/post_proc_cuda
+    STAGES: CUDA events at the stage boundaries inside the call): the
+    median of each stage over `reps` calls after a warm-up, and the
+    sweep counts of the two watershed phases seen in those calls. Fails
+    unless both phases swept at least once."""
+    from hover_net_tpu_torch.ops.post_proc_cuda import STAGES
+
+    runs = []
+    for _ in range(reps + 1):
+        stats = {}
+        call(stats)
+        runs.append(stats)
+    runs = runs[1:]
+    ms = {k: statistics.median(r["stage_ms"][k] for r in runs)
+          for k in STAGES}
+    sweeps = sorted({(r["sweeps"]["ws_phase1"], r["sweeps"]["ws_phase2"])
+                     for r in runs})
+    log(f"{what} split (ms, median of {reps}, CUDA events inside the call): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; sum {sum(ms.values()):.3f}; sweeps (phase 1, phase 2) "
+        + ", ".join(f"{a} + {b}" for a, b in sweeps))
+    if any(min(sw) < 1 for sw in sweeps):
+        raise AssertionError(f"{what}: a watershed phase ran no sweep")
+    return ms, sweeps
+
+
 def check_kernel(dev):
     """Phase 3: K1 == plain on four maps; times at 1148^2."""
     import torch
@@ -265,6 +295,7 @@ def check_kernel(dev):
     plain_ms = median_ms(lambda: k1.proc_tail_reference(blb, sob), 5)
     log(f"K1 time at {CANVAS}^2: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
         f"(median, CUDA events)")
+    log_split(f"K1 at {CANVAS}^2", lambda st: k1.proc_tail(blb, sob, stats=st))
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err,
             "canvas": inputs["canvas_1148"]}
 
@@ -801,6 +832,8 @@ def wsi_real_nuclei(mgr, work):
     plain_ms = median_ms(lambda: proc_tail_reference(blb, sob), 3)
     log(f"K1 time at WSI window batch {tuple(blb.shape)}: kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events)")
+    log_split(f"K1 at WSI window batch {tuple(blb.shape)}",
+              lambda st: proc_tail(blb, sob, stats=st))
     k1_bound = bound(tensor_bytes(blb, sob, proc_tail(blb, sob)))
 
     # the stitching algorithm against the single-shot solve of the whole
@@ -879,6 +912,7 @@ def check_k2(dev, canvas):
     plain_ms = median_ms(lambda: watershed_reference(e, m, b), 5)
     log(f"K2 time at {CANVAS}^2: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
         f"(median, CUDA events); K2 on the tail's stages == K1")
+    log_split(f"K2 at {CANVAS}^2", lambda st: watershed(e, m, b, stats=st))
     k2_bound = bound(tensor_bytes(e, m, b, want))
 
     # the op API as a user calls it: the blocked entry and the whole map

@@ -13,8 +13,8 @@
 // the JAX exact path, proc_np_hv_batch(exact=True).
 //
 // Stages, each one or more launches on the caller's stream:
-//   1. blob CCL (union-find, min root) and removal of components under
-//      `blob_min_size` pixels (sizes by atomicAdd);
+//   1. blob CCL (block-based union-find, least-index roots) and removal
+//      of components under `blob_min_size` pixels (sizes by atomicAdd);
 //   2. overall / dist, the 3x3 Gaussian (rows, then columns, reflect-101)
 //      and 65536-level quantisation, and marker = blob & overall < 0.4;
 //   3. fill-holes: CCL of the marker background, flags on the components
@@ -26,29 +26,40 @@
 //      its fixpoint;
 //   7. watershed phase 2: relax (total hops << 32 | label) along the
 //      edges that attain the fixed cost, to its fixpoint.
+// A caller may ask for the split of a call (`stats`): CUDA events at the
+// stage boundaries and the sweep count of each watershed phase.
 //
 // What bounds it on this card. The TPU kernel cut the map into halo
 // windows to fit VMEM; here each map is solved whole: at 1148^2 one int32
 // plane is 5.3 MB, and the whole working set (~31 bytes a pixel, 41 MB)
-// stays in the 50 MB L2. The CCL stages are a fixed handful of launches.
-// The two watershed phases are fixpoint loops: one launch is one sweep,
-// reading ~25 bytes a pixel (L2 traffic of ~33 MB a sweep at 1148^2, some
-// tens of microseconds), and the host reads a device changed-flag after
-// every sweep to decide whether to go on. The number of sweeps is about
-// the longest optimal path in hops inside a blob (a nucleus diameter), so
-// the time is sweeps x (launch + flag round trip) more than bytes. The
-// design does two things about it: one thread per pixel relaxes IN PLACE
-// (Gauss-Seidel rather than Jacobi), so a value can travel several pixels
-// in one sweep, and nothing leaves L2 between sweeps. Block-local
-// relaxation in shared memory and a persistent cooperative kernel without
-// host round trips are left for later.
+// stays in the 50 MB L2. By bytes the tail is ~9 bytes a pixel in and
+// out, a few microseconds; what it spends instead is chains of dependent
+// steps: union-find chains in the CCLs and, in the watershed, fronts
+// that move across the map one relaxation step at a time. The design
+// keeps those steps inside shared memory (post_proc_tiles.cuh):
+// - CCL (three launches): one 256-thread block per 32x32 tile unites the
+//   tile's pixels with shared-memory atomicMin (so the map-sized
+//   background of fill-holes no longer funnels every pixel's union into
+//   one global chain), then one thread per tile-border pair unites across
+//   tiles in global memory with path halving, then every pixel takes its
+//   root. Roots stay least indices, so labels are 1 + the component's
+//   first raster pixel, as in the plain version.
+// - Watershed: one sweep is one launch over the tiles; each block loads
+//   its tile and a 1-pixel halo into shared memory, relaxes the tile to
+//   its local fixpoint against the fixed halo (a block-wide barrier per
+//   step), and writes back the pixels that fell. A front thus crosses a
+//   whole tile per sweep, and a phase takes a few sweeps (a nucleus is
+//   smaller than a tile). The host launches sweeps kSweepBatch at a time,
+//   each with its own changed flag; a sweep whose predecessor changed
+//   nothing returns at once, and one copy of the batch's flags (one
+//   synchronisation) decides whether to go on.
 //
-// In-place (chaotic) relaxation is legal because both phases relax a
-// monotone operator from the top of a finite lattice, so every sweep
-// order reaches the same unique fixpoint (hover_net_tpu/ops/
-// post_proc_device.py, watershed_flood). `sweep_order` permutes the
-// thread-to-pixel map of the relaxation sweeps so that a test can show it
-// (0 raster, 1 reversed, 2 strided by a prime).
+// Relaxing in place, tile by tile and with stale halos, is legal because
+// both phases relax a monotone operator from the top of a finite lattice,
+// so every order reaches the same unique fixpoint (hover_net_tpu/ops/
+// post_proc_device.py, watershed_flood). `sweep_order` permutes the tiles
+// of a sweep and the pixels inside a tile so that a test can show it (0
+// raster, 1 reversed, 2 strided by a prime).
 //
 // K4 (`hnt_proc_tail`, skip > 0) replaces the TPU kernel `kernel` inside
 // `make_variant` of scripts/probe_pp_stages.py: K1 with one stage left
@@ -70,10 +81,10 @@
 // (hops << 32) | label compares as unsigned, and a positive int32 label
 // orders the same as unsigned, so ties still go to the smallest label, as
 // in `_label_sweep`. The TPU kernel relaxes synchronously (Jacobi) and K2
-// in place, as K1 does; both reach the same unique fixpoint (below).
+// tile by tile, as K1 does; both reach the same unique fixpoint (above).
 // Bound on this card: bytes, 13 per pixel in and out (energy, markers,
-// mask, labels); like K1's watershed it spends its time in sweeps x
-// (launch + flag round trip). The TPU kernel had to fit one map in VMEM
+// mask, labels); like K1's watershed it spends its time in the sweeps'
+// chains of relaxation steps. The TPU kernel had to fit one map in VMEM
 // (<= ~512^2); K2 takes any n * h * w < 2^31.
 //
 // Float rounding. The float stages must round exactly as the plain
@@ -86,15 +97,22 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "post_proc_tiles.cuh"
+
 namespace {
 
-constexpr int kIntMax = 0x7fffffff;
-constexpr int kHopBits = 15;
-constexpr int kHopMask = (1 << kHopBits) - 1;
+using ppt::kHopBits;
+using ppt::kIntMax;
 constexpr int kThreads = 256;
-constexpr int64_t kStride = 7919;  // prime; sweep_order 2
+// sweeps launched between two host reads of their changed flags
+constexpr int kSweepBatch = 8;
 // returned when a relaxation exceeds its sweep bound (not a cudaError_t)
 constexpr int kNoFixpoint = 100000;
+// the optional split of one call (ops/post_proc_cuda.py STAGES): a double
+// [kStatWords] of kStages stage times (ms, CUDA events at the stage
+// boundaries), then the sweep count of each watershed phase
+constexpr int kStages = 7;
+constexpr int kStatWords = kStages + 2;
 // K4's `skip` codes (ops/post_proc_cuda.py SKIPS)
 enum Skip { kSkipNone, kSkipWs, kSkipWsPhase2, kSkipRmsmall, kSkipFill,
             kSkipOpen, kSkipCount };
@@ -110,66 +128,46 @@ struct Geom {
   int64_t hw, total;
 };
 
-__device__ __forceinline__ bool in_mask(const uint8_t* mask, int pol,
-                                        int64_t i) {
-  return (mask[i] != 0) == (pol != 0);
-}
-
 // ---------------------------------------------------------------- CCL
-// Union-find over global pixel indices with parent[x] <= x: every root is
-// the minimum index of its set, i.e. the component's first raster pixel.
+// Block-based union-find (the ppt:: steps of post_proc_tiles.cuh): one
+// block per tile unites inside its tile in shared memory and writes each
+// pixel's local root; one thread per tile-border pair unites across
+// tiles in global memory (path halving); every pixel then takes its
+// root. Roots are least indices (parent[x] <= x), so a root is its
+// component's first raster pixel.
 
-__device__ __forceinline__ int find_root(const int* parent, int x) {
-  const volatile int* p = parent;
-  int nx = p[x];
-  while (nx != x) {
-    x = nx;
-    nx = p[x];
-  }
-  return x;
+__global__ void __launch_bounds__(ppt::kTileThreads)
+    ccl_local(const uint8_t* mask, int pol, int* parent, ppt::TileGrid tg) {
+  __shared__ int sp[ppt::kTilePx];
+  __shared__ uint8_t in[ppt::kTilePx];
+  ppt::Tile t = ppt::tile_at(tg, blockIdx.x);
+  for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x)
+    ppt::ccl_local_init(t, tg, mask, pol, sp, in, l);
+  __syncthreads();
+  for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x)
+    ppt::ccl_local_unite(in, sp, l);
+  __syncthreads();
+  for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x)
+    ppt::ccl_local_store(t, tg, in, sp, parent, l);
 }
 
-__device__ void unite(int* parent, int a, int b) {
-  for (;;) {
-    a = find_root(parent, a);
-    b = find_root(parent, b);
-    if (a == b) return;
-    if (a > b) {
-      int t = a;
-      a = b;
-      b = t;
-    }
-    int old = atomicMin(&parent[b], a);
-    if (old == b) return;  // b was a root and now hangs below a
-    b = old;               // b had been re-linked: unite a with that
-  }
+__global__ void ccl_border(const uint8_t* mask, int pol, int* parent,
+                           ppt::TileGrid tg) {
+  int64_t a, b;
+  if (ppt::border_pair(ppt::tile_at(tg, blockIdx.x), tg, threadIdx.x, &a, &b))
+    ppt::ccl_border_merge(mask, pol, parent, a, b);
 }
 
-__global__ void ccl_init(int* parent, int64_t total) {
+__global__ void ccl_roots(const uint8_t* mask, int pol, int* parent,
+                          int64_t total) {
   int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i < total) parent[i] = (int)i;
-}
-
-__global__ void ccl_merge(const uint8_t* mask, int pol, int* parent, Geom g) {
-  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= g.total || !in_mask(mask, pol, i)) return;
-  int64_t p = i % g.hw;
-  int y = (int)(p / g.w), x = (int)(p - (int64_t)y * g.w);
-  if (x > 0 && in_mask(mask, pol, i - 1)) unite(parent, (int)i, (int)i - 1);
-  if (y > 0 && in_mask(mask, pol, i - g.w))
-    unite(parent, (int)i, (int)(i - g.w));
-}
-
-__global__ void ccl_flatten(const uint8_t* mask, int pol, int* parent,
-                            int64_t total) {
-  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i < total && in_mask(mask, pol, i)) parent[i] = find_root(parent, (int)i);
+  if (i < total) ppt::ccl_flatten(mask, pol, parent, i);
 }
 
 __global__ void count_sizes(const uint8_t* mask, int pol, const int* parent,
                             int* cnt, int64_t total) {
   int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i < total && in_mask(mask, pol, i)) atomicAdd(&cnt[parent[i]], 1);
+  if (i < total && ppt::in_mask(mask, pol, i)) atomicAdd(&cnt[parent[i]], 1);
 }
 
 // min_size <= 0 keeps every component (then `cnt` is not read)
@@ -265,11 +263,6 @@ __global__ void morph5(const uint8_t* src, uint8_t* dst, Geom g) {
 
 // ---------------------------------------------------------- watershed
 
-__device__ __forceinline__ int cross_cost(int q_c, int energy_sh) {
-  int lev = q_c & ~kHopMask;
-  return energy_sh > lev ? energy_sh : q_c + ((q_c & kHopMask) != kHopMask);
-}
-
 // the marker label of pixel i after removal: 1 + its component's first
 // pixel in the map, or 0 (min_size <= 0 keeps every component)
 __device__ __forceinline__ int marker_label(const uint8_t* marker,
@@ -307,67 +300,61 @@ __global__ void ws_seed(const int* energy_q, const int* markers,
                      : ((unsigned long long)kIntMax << 32);
 }
 
-__device__ __forceinline__ int64_t sweep_index(int64_t t, int64_t total,
-                                               int order) {
-  if (order == 1) return total - 1 - t;
-  if (order == 2) return (t * kStride) % total;
-  return t;
-}
+// One sweep of a phase over the tiles, in `order`; each block relaxes
+// its tile to the local fixpoint against its halo (the ppt:: steps of
+// post_proc_tiles.cuh) and writes back what fell. A sweep whose
+// predecessor in the batch (`prev`; null for the first) changed nothing
+// returns at once; a sweep in which anything fell sets *changed.
 
-__global__ void ws_cost_sweep(int* cost, const int* energy_sh,
-                              const uint8_t* blob, Geom g, int order,
-                              int* changed) {
-  int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= g.total) return;
-  int64_t i = sweep_index(t, g.total, order);
-  if (!blob[i]) return;
-  int64_t p = i % g.hw;
-  int y = (int)(p / g.w), x = (int)(p - (int64_t)y * g.w);
-  volatile int* c = cost;
-  int e = energy_sh[i], own = c[i], best = own;
-  if (x > 0) best = min(best, cross_cost(c[i - 1], e));
-  if (x < g.w - 1) best = min(best, cross_cost(c[i + 1], e));
-  if (y > 0) best = min(best, cross_cost(c[i - g.w], e));
-  if (y < g.h - 1) best = min(best, cross_cost(c[i + g.w], e));
-  if (best < own) {
-    c[i] = best;
-    *changed = 1;
+// phase 1: the packed minimax cost
+__global__ void __launch_bounds__(ppt::kTileThreads)
+    ws_cost_tiles(int* cost, const int* energy_sh, const uint8_t* mask,
+                  ppt::TileGrid tg, int order, const int* prev, int* changed) {
+  if (prev && !*prev) return;
+  __shared__ int hc[ppt::kHaloPx];
+  ppt::Tile t = ppt::tile_at(tg, ppt::sweep_index(blockIdx.x, tg.tiles, order));
+  ppt::CostLane ln;
+  if (!__syncthreads_or(ppt::cost_lane_load(ln, t, tg, cost, energy_sh, mask,
+                                            threadIdx.x, order)))
+    return;
+  for (int hl = threadIdx.x; hl < ppt::kHaloPx; hl += blockDim.x)
+    hc[hl] = ppt::halo_value(t, tg, cost, hl, kIntMax);
+  __syncthreads();
+  while (__syncthreads_or(ppt::cost_lane_relax(ln, hc))) {
   }
-}
-
-// the (hops, label) offer of neighbour q to a pixel of cost `own_cost`
-__device__ __forceinline__ void offer(const int* cost,
-                                      const volatile unsigned long long* pk,
-                                      int64_t q, int e, int own_cost,
-                                      unsigned long long* best) {
-  int q_c = cost[q];
-  if (q_c == kIntMax || cross_cost(q_c, e) != own_cost) return;
-  unsigned long long v = pk[q];
-  if ((unsigned)v == 0u || (v >> 32) == (unsigned long long)kIntMax) return;
-  v += 1ull << 32;
-  if (v < *best) *best = v;
-}
-
-__global__ void ws_label_sweep(const int* cost, const int* energy_sh,
-                               const uint8_t* blob, unsigned long long* packed,
-                               Geom g, int order, int* changed) {
-  int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= g.total) return;
-  int64_t i = sweep_index(t, g.total, order);
-  if (!blob[i] || cost[i] == kIntMax) return;
-  int64_t p = i % g.hw;
-  int y = (int)(p / g.w), x = (int)(p - (int64_t)y * g.w);
-  volatile unsigned long long* pk = packed;
-  int e = energy_sh[i], c = cost[i];
-  unsigned long long own = pk[i], best = own;
-  if (x > 0) offer(cost, pk, i - 1, e, c, &best);
-  if (x < g.w - 1) offer(cost, pk, i + 1, e, c, &best);
-  if (y > 0) offer(cost, pk, i - g.w, e, c, &best);
-  if (y < g.h - 1) offer(cost, pk, i + g.w, e, c, &best);
-  if (best < own) {
-    pk[i] = best;
+  if (__syncthreads_or(ppt::cost_lane_store(ln, t, tg, cost, threadIdx.x,
+                                            order)) &&
+      threadIdx.x == 0)
     *changed = 1;
+}
+
+// phase 2: (hops, label) along the edges that attain the fixed cost
+__global__ void __launch_bounds__(ppt::kTileThreads)
+    ws_label_tiles(const int* cost, const int* energy_sh, const uint8_t* mask,
+                   unsigned long long* packed, ppt::TileGrid tg, int order,
+                   const int* prev, int* changed) {
+  if (prev && !*prev) return;
+  __shared__ int hc[ppt::kHaloPx];
+  __shared__ unsigned long long hv[ppt::kHaloPx];
+  ppt::Tile t = ppt::tile_at(tg, ppt::sweep_index(blockIdx.x, tg.tiles, order));
+  if (!__syncthreads_or(ppt::lane_in_mask(t, tg, mask, threadIdx.x, order)))
+    return;
+  for (int hl = threadIdx.x; hl < ppt::kHaloPx; hl += blockDim.x) {
+    hc[hl] = ppt::halo_value(t, tg, cost, hl, kIntMax);
+    hv[hl] = ppt::halo_value(t, tg, (const unsigned long long*)packed, hl,
+                             ppt::kUnreached);
   }
+  __syncthreads();
+  ppt::LabelLane ln;
+  if (!__syncthreads_or(ppt::label_lane_load(ln, t, tg, hc, energy_sh, mask,
+                                             packed, threadIdx.x, order)))
+    return;
+  while (__syncthreads_or(ppt::label_lane_relax(ln, hv))) {
+  }
+  if (__syncthreads_or(ppt::label_lane_store(ln, t, tg, packed, threadIdx.x,
+                                             order)) &&
+      threadIdx.x == 0)
+    *changed = 1;
 }
 
 __global__ void ws_final(const uint8_t* blob, const unsigned long long* packed,
@@ -399,7 +386,7 @@ __global__ void phase1_out(const uint8_t* blob, const int* cost,
 
 struct Workspace {
   unsigned long long* packed;
-  int *parent, *cnt, *energy_sh, *cost, *flag;
+  int *parent, *cnt, *energy_sh, *cost, *flags;
   float* dist;
   uint8_t *blob, *marker, *tmp;
 };
@@ -422,7 +409,7 @@ int64_t carve(char* base, int64_t total, Workspace* ws) {
   w.blob = (uint8_t*)take(total);
   w.marker = (uint8_t*)take(total);
   w.tmp = (uint8_t*)take(total);
-  w.flag = (int*)take(4);
+  w.flags = (int*)take(4 * kSweepBatch);
   if (ws) *ws = w;
   return off;
 }
@@ -430,7 +417,7 @@ int64_t carve(char* base, int64_t total, Workspace* ws) {
 // K2's workspace: the watershed state only
 struct WsWorkspace {
   unsigned long long* packed;
-  int *energy_sh, *cost, *flag;
+  int *energy_sh, *cost, *flags;
 };
 
 int64_t carve_ws(char* base, int64_t total, WsWorkspace* ws) {
@@ -444,16 +431,21 @@ int64_t carve_ws(char* base, int64_t total, WsWorkspace* ws) {
   w.packed = (unsigned long long*)take(total * 8);
   w.energy_sh = (int*)take(total * 4);
   w.cost = (int*)take(total * 4);
-  w.flag = (int*)take(4);
+  w.flags = (int*)take(4 * kSweepBatch);
   if (ws) *ws = w;
   return off;
 }
 
+// parent[i] of every pixel of the mask (pol 1: set, 0: clear): the least
+// index of its 4-connected component in its map (off the mask: i)
 cudaError_t ccl(const uint8_t* mask, int pol, int* parent, Geom g,
                 unsigned blocks, cudaStream_t s) {
-  ccl_init<<<blocks, kThreads, 0, s>>>(parent, g.total);
-  ccl_merge<<<blocks, kThreads, 0, s>>>(mask, pol, parent, g);
-  ccl_flatten<<<blocks, kThreads, 0, s>>>(mask, pol, parent, g.total);
+  ppt::TileGrid tg = ppt::tile_grid((int)(g.total / g.hw), g.h, g.w);
+  ccl_local<<<(unsigned)tg.tiles, ppt::kTileThreads, 0, s>>>(mask, pol,
+                                                             parent, tg);
+  ccl_border<<<(unsigned)tg.tiles, ppt::kBorderPairs, 0, s>>>(mask, pol,
+                                                              parent, tg);
+  ccl_roots<<<blocks, kThreads, 0, s>>>(mask, pol, parent, g.total);
   return cudaGetLastError();
 }
 
@@ -465,43 +457,200 @@ cudaError_t sizes(const uint8_t* mask, const int* parent, int* cnt, Geom g,
   return cudaGetLastError();
 }
 
-// launch `sweep` until a sweep changes nothing (host reads the flag);
-// a fixpoint takes at most one sweep per pixel of the longest path, so
-// more sweeps than pixels means a fault, reported as kNoFixpoint
+// Launch sweeps until one changes nothing. Sweeps go out kSweepBatch at
+// a time, each with its own changed flag; one copy of the batch's flags
+// to the host (one synchronisation) decides whether to go on. A fixpoint
+// takes at most one sweep per pixel of the longest path, so more sweeps
+// than pixels means a fault, reported as kNoFixpoint. `*sweeps` counts
+// the sweeps that ran, the last (unchanged) one included.
 template <typename Sweep>
-int relax(int* flag, int64_t max_sweeps, cudaStream_t s, Sweep sweep) {
-  for (int64_t k = 0; k <= max_sweeps; ++k) {
-    cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int), s);
+int relax(int* flags, int64_t max_sweeps, cudaStream_t s, int64_t* sweeps,
+          Sweep sweep) {
+  for (int64_t done = 0; done <= max_sweeps; done += kSweepBatch) {
+    cudaError_t err = cudaMemsetAsync(flags, 0, kSweepBatch * sizeof(int), s);
     if (err != cudaSuccess) return err;
-    sweep();
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    int changed = 0;
-    err = cudaMemcpyAsync(&changed, flag, sizeof(int), cudaMemcpyDeviceToHost,
-                          s);
+    for (int k = 0; k < kSweepBatch; ++k) {
+      sweep(k ? flags + k - 1 : nullptr, flags + k);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    int changed[kSweepBatch];
+    err = cudaMemcpyAsync(changed, flags, sizeof(changed),
+                          cudaMemcpyDeviceToHost, s);
     if (err != cudaSuccess) return err;
     if ((err = cudaStreamSynchronize(s)) != cudaSuccess) return err;
-    if (!changed) return cudaSuccess;
+    for (int k = 0; k < kSweepBatch; ++k) {
+      if (!changed[k]) {
+        *sweeps = done + k + 1;
+        return cudaSuccess;
+      }
+    }
   }
   return kNoFixpoint;
 }
 
 // watershed phase 1: relax the packed cost over `mask` to its fixpoint
 int relax_cost(int* cost, const int* energy_sh, const uint8_t* mask,
-               int* flag, Geom g, unsigned blocks, int order, cudaStream_t s) {
-  return relax(flag, g.total + 1, s, [&] {
-    ws_cost_sweep<<<blocks, kThreads, 0, s>>>(cost, energy_sh, mask, g, order,
-                                              flag);
+               int* flags, Geom g, int order, cudaStream_t s,
+               int64_t* sweeps) {
+  ppt::TileGrid tg = ppt::tile_grid((int)(g.total / g.hw), g.h, g.w);
+  return relax(flags, g.total + 1, s, sweeps, [&](const int* prev, int* f) {
+    ws_cost_tiles<<<(unsigned)tg.tiles, ppt::kTileThreads, 0, s>>>(
+        cost, energy_sh, mask, tg, order, prev, f);
   });
 }
 
 // watershed phase 2: (hops, label) ties along cost-attaining edges
 int relax_labels(const int* cost, const int* energy_sh, const uint8_t* mask,
-                 unsigned long long* packed, int* flag, Geom g,
-                 unsigned blocks, int order, cudaStream_t s) {
-  return relax(flag, g.total + 1, s, [&] {
-    ws_label_sweep<<<blocks, kThreads, 0, s>>>(cost, energy_sh, mask, packed,
-                                               g, order, flag);
+                 unsigned long long* packed, int* flags, Geom g, int order,
+                 cudaStream_t s, int64_t* sweeps) {
+  ppt::TileGrid tg = ppt::tile_grid((int)(g.total / g.hw), g.h, g.w);
+  return relax(flags, g.total + 1, s, sweeps, [&](const int* prev, int* f) {
+    ws_label_tiles<<<(unsigned)tg.tiles, ppt::kTileThreads, 0, s>>>(
+        cost, energy_sh, mask, packed, tg, order, prev, f);
   });
+}
+
+// The optional split of one call: CUDA events at its stage boundaries
+// (boundary 0 is the call's start, kStages its end) and the sweep counts.
+// Nothing is recorded when the caller passes no `stats`.
+class StageClock {
+ public:
+  StageClock(double* stats, cudaStream_t s) : stats_(stats), s_(s) {}
+  ~StageClock() {
+    for (int k = 0; k < made_; ++k) cudaEventDestroy(ev_[k]);
+  }
+  int64_t sweeps[2] = {0, 0};
+
+  // record every boundary up to `k` not recorded yet (a stage that did
+  // not run takes no time)
+  cudaError_t mark(int k) {
+    if (!stats_) return cudaSuccess;
+    while (made_ <= k) {
+      cudaError_t err = cudaEventCreate(&ev_[made_]);
+      if (err != cudaSuccess) return err;
+      if ((err = cudaEventRecord(ev_[made_++], s_)) != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  }
+
+  // the last boundary; wait for it and write the stage times and sweeps
+  cudaError_t finish() {
+    if (!stats_) return cudaSuccess;
+    cudaError_t err = mark(kStages);
+    if (err == cudaSuccess) err = cudaEventSynchronize(ev_[kStages]);
+    for (int k = 0; k < kStages && err == cudaSuccess; ++k) {
+      float ms = 0.0f;
+      err = cudaEventElapsedTime(&ms, ev_[k], ev_[k + 1]);
+      stats_[k] = ms;
+    }
+    stats_[kStages] = (double)sweeps[0];
+    stats_[kStages + 1] = (double)sweeps[1];
+    return err;
+  }
+
+ private:
+  double* stats_;
+  cudaStream_t s_;
+  cudaEvent_t ev_[kStages + 1];
+  int made_ = 0;
+};
+
+// K1 and K4 (see hnt_proc_tail); returns 0 or an error code
+int proc_tail(const uint8_t* blb, const float* sob, int* out, void* ws_p,
+              Geom g, int marker_min_size, int blob_min_size,
+              int sweep_order, int skip, cudaStream_t s, StageClock& clock) {
+  unsigned blocks = (unsigned)((g.total + kThreads - 1) / kThreads);
+  Workspace ws;
+  carve((char*)ws_p, g.total, &ws);
+  // skip = rmsmall: no size counts, every component kept
+  bool rm = skip != kSkipRmsmall;
+  int blob_min = rm ? blob_min_size : 0, marker_min = rm ? marker_min_size : 0;
+  cudaError_t err;
+  int rc;
+
+  if ((err = clock.mark(0))) return err;
+  // 1. blob CCL + small-object removal
+  if ((err = ccl(blb, 1, ws.parent, g, blocks, s))) return err;
+  if (rm && (err = sizes(blb, ws.parent, ws.cnt, g, blocks, s))) return err;
+  keep_large<<<blocks, kThreads, 0, s>>>(blb, ws.parent, ws.cnt, blob_min,
+                                         ws.blob, g.total);
+  if ((err = clock.mark(1))) return err;
+  // 2. energy and raw markers
+  energy_dist<<<blocks, kThreads, 0, s>>>(sob, ws.blob, ws.dist, ws.marker,
+                                          g.total);
+  blur_quantize<<<blocks, kThreads, 0, s>>>(ws.dist, ws.energy_sh, g);
+  if ((err = cudaGetLastError())) return err;
+  if ((err = clock.mark(2))) return err;
+  // 3. fill-holes: background components that miss the border
+  if (skip != kSkipFill) {
+    if ((err = ccl(ws.marker, 0, ws.parent, g, blocks, s))) return err;
+    if ((err = cudaMemsetAsync(ws.cnt, 0, g.total * sizeof(int), s)))
+      return err;
+    border_touch<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt, g);
+    fill_enclosed<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt,
+                                              g.total);
+  }
+  if ((err = clock.mark(3))) return err;
+  // 4. 5x5 opening
+  if (skip != kSkipOpen) {
+    morph5<true><<<blocks, kThreads, 0, s>>>(ws.marker, ws.tmp, g);
+    morph5<false><<<blocks, kThreads, 0, s>>>(ws.tmp, ws.marker, g);
+    if ((err = cudaGetLastError())) return err;
+  }
+  if ((err = clock.mark(4))) return err;
+  // 5. marker CCL + removal, watershed seeds
+  if ((err = ccl(ws.marker, 1, ws.parent, g, blocks, s))) return err;
+  if (rm && (err = sizes(ws.marker, ws.parent, ws.cnt, g, blocks, s)))
+    return err;
+  if (skip == kSkipWs) {
+    marker_out<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt,
+                                           marker_min, out, g);
+    return cudaGetLastError();
+  }
+  ws_init<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt,
+                                      marker_min, ws.blob, ws.energy_sh,
+                                      ws.cost, ws.packed, g);
+  if ((err = cudaGetLastError())) return err;
+  if ((err = clock.mark(5))) return err;
+  // 6. phase 1: packed minimax cost
+  rc = relax_cost(ws.cost, ws.energy_sh, ws.blob, ws.flags, g, sweep_order,
+                  s, &clock.sweeps[0]);
+  if (rc) return rc;
+  if (skip == kSkipWsPhase2) {
+    phase1_out<<<blocks, kThreads, 0, s>>>(ws.blob, ws.cost, ws.packed, out,
+                                           g.total);
+    return cudaGetLastError();
+  }
+  if ((err = clock.mark(6))) return err;
+  // 7. phase 2: (hops, label) ties along cost-attaining edges
+  rc = relax_labels(ws.cost, ws.energy_sh, ws.blob, ws.packed, ws.flags, g,
+                    sweep_order, s, &clock.sweeps[1]);
+  if (rc) return rc;
+  ws_final<<<blocks, kThreads, 0, s>>>(ws.blob, ws.packed, out, g.total);
+  return cudaGetLastError();
+}
+
+// K2 (see hnt_watershed); its seed pass is timed as the "markers" stage
+int watershed(const int* energy_q, const int* markers, const uint8_t* mask,
+              int* out, void* ws_p, Geom g, int sweep_order, cudaStream_t s,
+              StageClock& clock) {
+  unsigned blocks = (unsigned)((g.total + kThreads - 1) / kThreads);
+  WsWorkspace ws;
+  carve_ws((char*)ws_p, g.total, &ws);
+  cudaError_t err = clock.mark(4);
+  if (err) return err;
+  ws_seed<<<blocks, kThreads, 0, s>>>(energy_q, markers, mask, ws.energy_sh,
+                                      ws.cost, ws.packed, g.total);
+  if ((err = cudaGetLastError()) || (err = clock.mark(5))) return err;
+  int rc = relax_cost(ws.cost, ws.energy_sh, mask, ws.flags, g, sweep_order,
+                      s, &clock.sweeps[0]);
+  if (rc) return rc;
+  if ((err = clock.mark(6))) return err;
+  rc = relax_labels(ws.cost, ws.energy_sh, mask, ws.packed, ws.flags, g,
+                    sweep_order, s, &clock.sweeps[1]);
+  if (rc) return rc;
+  ws_final<<<blocks, kThreads, 0, s>>>(mask, ws.packed, out, g.total);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -517,79 +666,22 @@ extern "C" const char* hnt_error_string(int err) {
 
 // blb uint8 [n, h, w], sob float32 [n, h, w] -> out int32 [n, h, w];
 // workspace: hnt_proc_tail_workspace_bytes(n * h * w) bytes, 256-aligned;
-// skip: a Skip code (0 = the whole tail, K1). Returns 0 or a cudaError_t.
+// skip: a Skip code (0 = the whole tail, K1); stats: null, or a double
+// [kStatWords] that receives the call's split (the call then waits for
+// its end). Returns 0 or a cudaError_t.
 extern "C" int hnt_proc_tail(const void* blb_p, const void* sob_p, void* out_p,
                              void* ws_p, int n, int h, int w,
                              int marker_min_size, int blob_min_size,
-                             int sweep_order, int skip, void* stream) {
-  const uint8_t* blb = (const uint8_t*)blb_p;
-  const float* sob = (const float*)sob_p;
-  int* out = (int*)out_p;
-  cudaStream_t s = (cudaStream_t)stream;
-  Geom g{h, w, (int64_t)h * w, (int64_t)n * h * w};
-  unsigned blocks = (unsigned)((g.total + kThreads - 1) / kThreads);
-  Workspace ws;
-  carve((char*)ws_p, g.total, &ws);
+                             int sweep_order, int skip, void* stream,
+                             void* stats) {
   if (skip < 0 || skip >= kSkipCount) return cudaErrorInvalidValue;
-  // skip = rmsmall: no size counts, every component kept
-  bool rm = skip != kSkipRmsmall;
-  int blob_min = rm ? blob_min_size : 0, marker_min = rm ? marker_min_size : 0;
-  cudaError_t err;
-  int rc;
-
-  // 1. blob CCL + small-object removal
-  if ((err = ccl(blb, 1, ws.parent, g, blocks, s))) return err;
-  if (rm && (err = sizes(blb, ws.parent, ws.cnt, g, blocks, s))) return err;
-  keep_large<<<blocks, kThreads, 0, s>>>(blb, ws.parent, ws.cnt, blob_min,
-                                         ws.blob, g.total);
-  // 2. energy and raw markers
-  energy_dist<<<blocks, kThreads, 0, s>>>(sob, ws.blob, ws.dist, ws.marker,
-                                          g.total);
-  blur_quantize<<<blocks, kThreads, 0, s>>>(ws.dist, ws.energy_sh, g);
-  if ((err = cudaGetLastError())) return err;
-  // 3. fill-holes: background components that miss the border
-  if (skip != kSkipFill) {
-    if ((err = ccl(ws.marker, 0, ws.parent, g, blocks, s))) return err;
-    if ((err = cudaMemsetAsync(ws.cnt, 0, g.total * sizeof(int), s)))
-      return err;
-    border_touch<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt, g);
-    fill_enclosed<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt,
-                                              g.total);
-  }
-  // 4. 5x5 opening
-  if (skip != kSkipOpen) {
-    morph5<true><<<blocks, kThreads, 0, s>>>(ws.marker, ws.tmp, g);
-    morph5<false><<<blocks, kThreads, 0, s>>>(ws.tmp, ws.marker, g);
-    if ((err = cudaGetLastError())) return err;
-  }
-  // 5. marker CCL + removal, watershed seeds
-  if ((err = ccl(ws.marker, 1, ws.parent, g, blocks, s))) return err;
-  if (rm && (err = sizes(ws.marker, ws.parent, ws.cnt, g, blocks, s)))
-    return err;
-  if (skip == kSkipWs) {
-    marker_out<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt,
-                                           marker_min, out, g);
-    return cudaGetLastError();
-  }
-  ws_init<<<blocks, kThreads, 0, s>>>(ws.marker, ws.parent, ws.cnt,
-                                      marker_min, ws.blob, ws.energy_sh,
-                                      ws.cost, ws.packed, g);
-  if ((err = cudaGetLastError())) return err;
-  // 6. phase 1: packed minimax cost
-  rc = relax_cost(ws.cost, ws.energy_sh, ws.blob, ws.flag, g, blocks,
-                  sweep_order, s);
-  if (rc) return rc;
-  if (skip == kSkipWsPhase2) {
-    phase1_out<<<blocks, kThreads, 0, s>>>(ws.blob, ws.cost, ws.packed, out,
-                                           g.total);
-    return cudaGetLastError();
-  }
-  // 7. phase 2: (hops, label) ties along cost-attaining edges
-  rc = relax_labels(ws.cost, ws.energy_sh, ws.blob, ws.packed, ws.flag, g,
-                    blocks, sweep_order, s);
-  if (rc) return rc;
-  ws_final<<<blocks, kThreads, 0, s>>>(ws.blob, ws.packed, out, g.total);
-  return cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  StageClock clock((double*)stats, s);
+  int rc = proc_tail((const uint8_t*)blb_p, (const float*)sob_p, (int*)out_p,
+                     ws_p, Geom{h, w, (int64_t)h * w, (int64_t)n * h * w},
+                     marker_min_size, blob_min_size, sweep_order, skip, s,
+                     clock);
+  return rc ? rc : clock.finish();
 }
 
 extern "C" int64_t hnt_watershed_workspace_bytes(int64_t total) {
@@ -598,29 +690,17 @@ extern "C" int64_t hnt_watershed_workspace_bytes(int64_t total) {
 
 // K2: energy_q int32, markers int32, mask uint8 [n, h, w] -> out int32
 // [n, h, w]; workspace: hnt_watershed_workspace_bytes(n * h * w) bytes,
-// 256-aligned. Returns 0 or a cudaError_t.
+// 256-aligned; stats as for hnt_proc_tail (stages 0-3 take no time).
+// Returns 0 or a cudaError_t.
 extern "C" int hnt_watershed(const void* energy_p, const void* markers_p,
                              const void* mask_p, void* out_p, void* ws_p,
                              int n, int h, int w, int sweep_order,
-                             void* stream) {
-  const uint8_t* mask = (const uint8_t*)mask_p;
+                             void* stream, void* stats) {
   cudaStream_t s = (cudaStream_t)stream;
-  Geom g{h, w, (int64_t)h * w, (int64_t)n * h * w};
-  unsigned blocks = (unsigned)((g.total + kThreads - 1) / kThreads);
-  WsWorkspace ws;
-  carve_ws((char*)ws_p, g.total, &ws);
-  ws_seed<<<blocks, kThreads, 0, s>>>((const int*)energy_p,
-                                      (const int*)markers_p, mask,
-                                      ws.energy_sh, ws.cost, ws.packed,
-                                      g.total);
-  cudaError_t err = cudaGetLastError();
-  if (err) return err;
-  int rc = relax_cost(ws.cost, ws.energy_sh, mask, ws.flag, g, blocks,
-                      sweep_order, s);
-  if (rc) return rc;
-  rc = relax_labels(ws.cost, ws.energy_sh, mask, ws.packed, ws.flag, g,
-                    blocks, sweep_order, s);
-  if (rc) return rc;
-  ws_final<<<blocks, kThreads, 0, s>>>(mask, ws.packed, (int*)out_p, g.total);
-  return cudaGetLastError();
+  StageClock clock((double*)stats, s);
+  int rc = watershed((const int*)energy_p, (const int*)markers_p,
+                     (const uint8_t*)mask_p, (int*)out_p, ws_p,
+                     Geom{h, w, (int64_t)h * w, (int64_t)n * h * w},
+                     sweep_order, s, clock);
+  return rc ? rc : clock.finish();
 }

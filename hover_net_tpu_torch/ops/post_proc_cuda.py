@@ -29,11 +29,18 @@ stages (cli/probe_pp_stages.py). skip="none" is K1.
 
 `proc_tail.launches` counts K1's launches (skip="none"),
 `proc_tail.skip_launches` K4's (any other skip); one per call.
+
+`stats`, a dict passed to `proc_tail` (or to `watershed_cuda.watershed`)
+with CUDA tensors, receives the call's split: "stage_ms", the device
+time of each of STAGES (CUDA events at the stage boundaries), and
+"sweeps", the sweep count of each watershed phase. The call then waits
+for the kernel's end. Without it the call records nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -50,20 +57,29 @@ from .post_proc_device import (
     watershed_flood,
 )
 
-# the sweep orders the kernel's in-place watershed relaxations accept:
-# 0 raster, 1 reversed raster, 2 strided permutation (tests only; the
-# fixpoints are unique, so every order gives the same labels)
+# the sweep orders of the kernel's tiled watershed relaxations: the order
+# of the tiles and of the pixels inside a tile, 0 raster, 1 reversed, 2
+# strided (tests only; the fixpoints are unique, so every order gives the
+# same labels)
 SWEEP_ORDERS = (0, 1, 2)
-_STRIDE = 7919  # order 2 visits pixel (t * _STRIDE) % total
+_STRIDE = 7919  # order 2 visits tile (t * _STRIDE) % tiles
+TILE = 32  # side of the kernel's tiles (csrc/post_proc_tiles.cuh)
 # K4's stage switch: the kernel's `skip` code is the index here
 SKIPS = ("none", "ws", "ws_phase2", "rmsmall", "fill", "open")
+# the stages of one call's split (`stats`), in order; "markers" is the
+# marker CCL, its removal and the watershed seeds (K2: its seed pass)
+STAGES = ("blob_ccl", "energy", "fill_holes", "opening", "markers",
+          "ws_phase1", "ws_phase2")
 
 
-def check_sweep_order(sweep_order: int, total: int) -> None:
-    """Raise unless the kernels accept `sweep_order` for `total` pixels."""
+def check_sweep_order(sweep_order: int, n: int, h: int, w: int) -> None:
+    """Raise unless the kernels accept `sweep_order` for [n, h, w] maps
+    (order 2 permutes the tiles only if their count is no multiple of
+    the stride)."""
+    tiles = n * -(-h // TILE) * -(-w // TILE)
     if sweep_order not in SWEEP_ORDERS or (
-            sweep_order == 2 and total % _STRIDE == 0):
-        raise ValueError(f"sweep_order {sweep_order} for {total} px")
+            sweep_order == 2 and tiles % _STRIDE == 0):
+        raise ValueError(f"sweep_order {sweep_order} for [{n}, {h}, {w}]")
 
 
 def _skip_code(skip: str) -> int:
@@ -119,6 +135,21 @@ def proc_tail_reference(blb: torch.Tensor, sob: torch.Tensor,
 
 # ------------------------------------------------------------ the kernel
 
+def stats_buffer(stats):
+    """The kernel's `stats` argument: None, or a double array for the
+    split (STAGES' times, then the two phases' sweep counts)."""
+    return None if stats is None else (ctypes.c_double * (len(STAGES) + 2))()
+
+
+def read_stats(buf, stats) -> None:
+    """Write the split of `buf` (see stats_buffer) into the dict."""
+    if stats is None:
+        return
+    stats["stage_ms"] = dict(zip(STAGES, buf[:len(STAGES)]))
+    stats["sweeps"] = {"ws_phase1": int(buf[len(STAGES)]),
+                       "ws_phase2": int(buf[len(STAGES) + 1])}
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.hnt_proc_tail_workspace_bytes.restype = ctypes.c_int64
     lib.hnt_proc_tail_workspace_bytes.argtypes = [ctypes.c_int64]
@@ -127,6 +158,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
     lib.hnt_watershed_workspace_bytes.restype = ctypes.c_int64
     lib.hnt_watershed_workspace_bytes.argtypes = [ctypes.c_int64]
@@ -134,7 +166,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hnt_watershed.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.hnt_error_string.restype = ctypes.c_char_p
     lib.hnt_error_string.argtypes = [ctypes.c_int]
@@ -147,7 +179,7 @@ def build() -> ctypes.CDLL:
 
 
 def _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size, sweep_order,
-                    skip):
+                    skip, stats):
     n, h, w = blb.shape
     if sob.shape != blb.shape or sob.device != blb.device:
         raise ValueError(f"blb {tuple(blb.shape)} on {blb.device} and sob "
@@ -158,7 +190,7 @@ def _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size, sweep_order,
         raise TypeError(f"blb must be bool or uint8, got {blb.dtype}")
     if h < 2 or w < 2 or n * h * w >= 2**31:
         raise ValueError(f"unsupported map shape {tuple(blb.shape)}")
-    check_sweep_order(sweep_order, n * h * w)
+    check_sweep_order(sweep_order, n, h, w)
     code = _skip_code(skip)
     blb = blb.contiguous().view(torch.uint8)
     sob = sob.contiguous()
@@ -168,10 +200,11 @@ def _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size, sweep_order,
         ws = torch.empty(lib.hnt_proc_tail_workspace_bytes(n * h * w),
                          dtype=torch.uint8, device=blb.device)
         stream = torch.cuda.current_stream(blb.device).cuda_stream
+        buf = stats_buffer(stats)
         err = lib.hnt_proc_tail(blb.data_ptr(), sob.data_ptr(),
                                 out.data_ptr(), ws.data_ptr(), n, h, w,
                                 marker_min_size, blob_min_size, sweep_order,
-                                code, stream)
+                                code, stream, buf)
     if err:
         raise RuntimeError("post-processing kernel failed: "
                            + lib.hnt_error_string(err).decode())
@@ -179,22 +212,26 @@ def _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size, sweep_order,
         proc_tail.skip_launches += 1
     else:
         proc_tail.launches += 1
+    read_stats(buf, stats)
     return out
 
 
 def proc_tail(blb: torch.Tensor, sob: torch.Tensor, marker_min_size: int = 10,
               blob_min_size: int = 10, sweep_order: int = 0,
-              skip: str = "none") -> torch.Tensor:
+              skip: str = "none", stats: Optional[dict] = None
+              ) -> torch.Tensor:
     """[N, H, W] nuclei mask (bool/uint8) + Sobel energy (float32) ->
     int32 [N, H, W] seed-index labels (K1), or with `skip` the output of
     K1 without that stage (K4). CUDA tensors run the kernel
-    (`sweep_order` picks its relaxation order), CPU tensors the plain
-    version."""
+    (`sweep_order` picks its relaxation order; a `stats` dict receives
+    the call's split), CPU tensors the plain version."""
     if blb.device.type == "cuda":
         return _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size,
-                               sweep_order, skip)
+                               sweep_order, skip, stats)
     if blb.device.type != "cpu":
         raise ValueError(f"no post-processing path for {blb.device}")
+    if stats is not None:
+        raise ValueError("stats are the kernel's: pass CUDA tensors")
     return proc_tail_reference(blb.bool(), sob, marker_min_size,
                                blob_min_size, skip)
 

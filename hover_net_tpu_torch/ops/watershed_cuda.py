@@ -23,9 +23,16 @@ with the JAX API, not because a map must be cut.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from .post_proc_cuda import build, check_sweep_order
+from .post_proc_cuda import (
+    build,
+    check_sweep_order,
+    read_stats,
+    stats_buffer,
+)
 from .post_proc_device import watershed_flood
 
 
@@ -36,7 +43,7 @@ def watershed_reference(energy_q: torch.Tensor, markers: torch.Tensor,
                            mask.bool())
 
 
-def _watershed_cuda(energy_q, markers, mask, sweep_order):
+def _watershed_cuda(energy_q, markers, mask, sweep_order, stats):
     if energy_q.dim() != 3 or not (
             energy_q.shape == markers.shape == mask.shape):
         raise ValueError(f"energy_q {tuple(energy_q.shape)}, markers "
@@ -48,7 +55,7 @@ def _watershed_cuda(energy_q, markers, mask, sweep_order):
     n, h, w = energy_q.shape
     if n * h * w >= 2**31:
         raise ValueError(f"unsupported map shape {tuple(energy_q.shape)}")
-    check_sweep_order(sweep_order, n * h * w)
+    check_sweep_order(sweep_order, n, h, w)
     out = torch.zeros((n, h, w), dtype=torch.int32, device=energy_q.device)
     if out.numel() == 0:
         return out
@@ -60,27 +67,35 @@ def _watershed_cuda(energy_q, markers, mask, sweep_order):
         ws = torch.empty(lib.hnt_watershed_workspace_bytes(n * h * w),
                          dtype=torch.uint8, device=out.device)
         stream = torch.cuda.current_stream(out.device).cuda_stream
+        buf = stats_buffer(stats)
         err = lib.hnt_watershed(energy_q.data_ptr(), markers.data_ptr(),
                                 mask.data_ptr(), out.data_ptr(),
-                                ws.data_ptr(), n, h, w, sweep_order, stream)
+                                ws.data_ptr(), n, h, w, sweep_order, stream,
+                                buf)
     if err:
         raise RuntimeError("watershed kernel failed: "
                            + lib.hnt_error_string(err).decode())
     watershed.launches += 1
+    read_stats(buf, stats)
     return out
 
 
 def watershed(energy_q: torch.Tensor, markers: torch.Tensor,
-              mask: torch.Tensor, sweep_order: int = 0) -> torch.Tensor:
+              mask: torch.Tensor, sweep_order: int = 0,
+              stats: Optional[dict] = None) -> torch.Tensor:
     """[N, H, W] quantised energy (int32, levels in [0, 65535]), markers
     (int32, 0 = none, any positive label) and flood mask -> int32
     [N, H, W] labels, 0 outside the mask or where no marker reaches.
     CUDA tensors run the kernel (`sweep_order` picks its relaxation
-    order), CPU tensors the plain version."""
+    order; a `stats` dict receives the call's split, as for
+    post_proc_cuda.proc_tail, with the seed pass as "markers"), CPU
+    tensors the plain version."""
     if energy_q.device.type == "cuda":
-        return _watershed_cuda(energy_q, markers, mask, sweep_order)
+        return _watershed_cuda(energy_q, markers, mask, sweep_order, stats)
     if energy_q.device.type != "cpu":
         raise ValueError(f"no watershed path for {energy_q.device}")
+    if stats is not None:
+        raise ValueError("stats are the kernel's: pass CUDA tensors")
     return watershed_reference(energy_q, markers, mask)
 
 

@@ -6,6 +6,8 @@ This file imports no jax, so it runs on a machine without it:
 (tests/conftest.py configures jax for the CPU suites).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ import torch
 from hover_net_tpu_torch.ops.targets import gen_instance_hv_map
 from hover_net_tpu_torch.ops import post_proc_device as tpp
 from hover_net_tpu_torch.ops.post_proc_cuda import (
+    STAGES,
     proc_tail,
     proc_tail_reference,
 )
@@ -91,6 +94,46 @@ def test_kernel_equals_plain(cuda, case):
         assert len(torch.unique(want)) > 10
 
 
+@functools.lru_cache(maxsize=None)
+def tiling_map(name):
+    """(blb, sob, plain labels) on the card of maps that stress the
+    kernel's 32x32 tiles: a serpentine blob flooded from one marker at
+    its start (the front crosses many tiles, so the watershed takes many
+    sweeps), sides that are no multiples of 32, and a batch of 3 with
+    nuclei on the map edges."""
+    from test_torch_pp_tiles import serpentine
+
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    if name == "serpentine":
+        blb = serpentine(160, 150, width=6, gap=3)
+        sob = np.full(blb.shape, 0.5, np.float32)
+        sob[:8, :16] = 0.1  # the only marker: overall < 0.4 there
+        blb, sob = (torch.from_numpy(x[None]).to(cuda) for x in (blb, sob))
+    else:
+        if name == "ragged":
+            pred = nuclei_pred((97, 45), rng, 12, True)[None]
+        else:
+            pred = np.stack([nuclei_pred((100, 70), rng, 25, True)
+                             for _ in range(3)])
+        blb, sob = energy(pred, cuda)
+    return blb, sob, proc_tail_reference(blb, sob)
+
+
+@pytest.mark.parametrize("order", [0, 1, 2])
+@pytest.mark.parametrize("name", ["serpentine", "ragged", "batch3_edges"])
+def test_tiling_maps_equal_plain(cuda, name, order):
+    blb, sob, want = tiling_map(name)
+    stats = {}
+    got = proc_tail(blb, sob, sweep_order=order, stats=stats)
+    assert torch.equal(got, want), f"{(got != want).sum().item()} differ"
+    if name == "serpentine":  # one instance, flooded end to end
+        assert torch.equal(want > 0, blb) and len(torch.unique(want)) == 2
+        assert stats["sweeps"]["ws_phase1"] > 3
+    else:
+        assert len(torch.unique(want)) > 5
+
+
 def test_sweep_order_does_not_change_labels(cuda):
     """The in-place relaxations reach the same fixpoint in every order."""
     rng = np.random.default_rng(4)
@@ -109,6 +152,31 @@ def test_device_path_equals_cpu_path(cuda):
     got = tpp.proc_np_hv_batch(torch.from_numpy(pred).to(cuda))
     want = tpp.proc_np_hv_batch(torch.from_numpy(pred))
     assert torch.equal(got.cpu(), want)
+
+
+def test_stage_split(cuda):
+    """`stats` receives the call's split: a time for every stage, whose
+    sum lies within the whole call's time (CUDA events around it), and a
+    positive sweep count for each watershed phase; the labels are the
+    same as without it."""
+    rng = np.random.default_rng(6)
+    blb, sob = energy(nuclei_pred((300, 260), rng, 150)[None], cuda)
+    want = proc_tail(blb, sob)
+    proc_tail(blb, sob, stats={})  # warm-up
+    stats = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = proc_tail(blb, sob, stats=stats)
+    end.record()
+    end.synchronize()
+    assert torch.equal(got, want)
+    assert set(stats["stage_ms"]) == set(STAGES)
+    assert all(v >= 0 for v in stats["stage_ms"].values())
+    total = sum(stats["stage_ms"].values())
+    assert 0 < total <= start.elapsed_time(end) + 0.01
+    assert stats["sweeps"]["ws_phase1"] > 0
+    assert stats["sweeps"]["ws_phase2"] > 0
 
 
 def test_wrapper_checks_inputs(cuda):

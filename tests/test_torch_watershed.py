@@ -140,12 +140,23 @@ def canvas_case(cuda):
     return watershed_inputs(*canvas_inputs(1000, cuda))
 
 
+# maps that stress the kernel's 32x32 tiles (tests/test_torch_pp_tiles.py):
+# a serpentine flooded from one marker, sides that are no multiples of 32,
+# a batch of 3 with components on the map edges
+TILING_CASES = ["serpentine", "ragged_97x45", "batch3_edges"]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("order", [0, 1, 2])
-@pytest.mark.parametrize("case", sorted(CASES) + ["canvas_1148"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["canvas_1148"]
+                         + TILING_CASES)
 def test_kernel_equals_plain(cuda, case, order):
     if case == "canvas_1148":
         e, m, b = canvas_case(cuda)
+    elif case in TILING_CASES:
+        from test_torch_pp_tiles import case as tiling_case
+
+        e, m, b = (torch.from_numpy(x).to(cuda) for x in tiling_case(case))
     else:
         e, m, b = (torch.from_numpy(x).to(cuda) for x in CASES[case]())
     before = watershed.launches
