@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a 1148^2 canvas of synthetic nuclei mirrored about a 1000^2 source
    (with its valid mask), a noisy map, an empty map and a 164^2 map;
    median times of both at 1148^2, and K1's own split there (CUDA
-   events at its stage boundaries, the sweeps of each watershed phase);
+   events at its stage boundaries, the sweeps of each watershed phase;
+   each kernel's device time under torch.profiler);
 4. the tile path as a user runs it: TileInferManager, fast mode, width
    64, bf16 body, seeded random weights loaded from a `.tar`, three
    1000^2 images written as json, then one typed image (nr_types=5);
@@ -48,7 +49,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    buffer, from an mmap, and with K1's plain version in K1's place:
    identical instances all three ways; K1 gives the plain labels on
    every [4, 2048, 2048]-class window batch and on the whole map;
-   median times of both at the 2048^2 batch and K1's split there;
+   median times of both at the 2048^2 batch and K1's two splits there;
    against the single-shot K1
    solve of the whole map, counts within 1% and AJI > 0.95;
 9. K2, the standalone watershed, against its plain version, element for
@@ -255,6 +256,41 @@ def log_split(what, call, reps=10):
     return ms, sweeps
 
 
+def kernel_split(what, call, reps=3):
+    """Print each kernel's device time in one `call()` under
+    torch.profiler (the median over `reps` profiled calls after a
+    warm-up, all launches of one name summed) and its launches; the
+    split is only printed."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        run = {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = re.sub(r"\(anonymous namespace\)::", "", e.name)
+            name = name.split("(")[0].split("::")[-1] or e.name
+            us, n = run.get(name, (0.0, 0))
+            run[name] = (us + e.device_time, n + 1)
+        runs.append(run)
+    names = {k for r in runs for k in r}
+    split = sorted(((statistics.median(r.get(k, (0.0, 0))[0] for r in runs),
+                     k, max(r.get(k, (0.0, 0))[1] for r in runs))
+                    for k in names), reverse=True)
+    log(f"{what} per kernel (us of device time in one call, median of "
+        f"{reps}, torch.profiler): " + ", ".join(
+            f"{k} {us:.1f} ({n}x)" for us, k, n in split))
+
+
 def check_kernel(dev):
     """Phase 3: K1 == plain on four maps; times at 1148^2."""
     import torch
@@ -296,6 +332,7 @@ def check_kernel(dev):
     log(f"K1 time at {CANVAS}^2: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
         f"(median, CUDA events)")
     log_split(f"K1 at {CANVAS}^2", lambda st: k1.proc_tail(blb, sob, stats=st))
+    kernel_split(f"K1 at {CANVAS}^2", lambda: k1.proc_tail(blb, sob))
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err,
             "canvas": inputs["canvas_1148"]}
 
@@ -834,6 +871,8 @@ def wsi_real_nuclei(mgr, work):
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events)")
     log_split(f"K1 at WSI window batch {tuple(blb.shape)}",
               lambda st: proc_tail(blb, sob, stats=st))
+    kernel_split(f"K1 at WSI window batch {tuple(blb.shape)}",
+                 lambda: proc_tail(blb, sob))
     k1_bound = bound(tensor_bytes(blb, sob, proc_tail(blb, sob)))
 
     # the stitching algorithm against the single-shot solve of the whole

@@ -128,10 +128,15 @@ struct Geom {
   int64_t hw, total;
 };
 
+ppt::TileGrid tile_grid(Geom g) {
+  return ppt::tile_grid((int)(g.total / g.hw), g.h, g.w);
+}
+
 // ---------------------------------------------------------------- CCL
 // Block-based union-find (the ppt:: steps of post_proc_tiles.cuh): one
-// block per tile unites inside its tile in shared memory and writes each
-// pixel's local root; one thread per tile-border pair unites across
+// block per tile roots each row's runs at their first pixel, unites the
+// runs of adjacent rows in shared memory and writes each pixel's local
+// root; one thread per tile-border pair unites across
 // tiles in global memory (path halving); every pixel then takes its
 // root. Roots are least indices (parent[x] <= x), so a root is its
 // component's first raster pixel.
@@ -140,15 +145,21 @@ __global__ void __launch_bounds__(ppt::kTileThreads)
     ccl_local(const uint8_t* mask, int pol, int* parent, ppt::TileGrid tg) {
   __shared__ int sp[ppt::kTilePx];
   __shared__ uint8_t in[ppt::kTilePx];
+  __shared__ unsigned rows[ppt::kTileH];
   ppt::Tile t = ppt::tile_at(tg, blockIdx.x);
   for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x)
-    ppt::ccl_local_init(t, tg, mask, pol, sp, in, l);
+    ppt::ccl_local_init(t, tg, mask, pol, in, l);
+  __syncthreads();
+  if (threadIdx.x < ppt::kTileH) ppt::ccl_row_bits(in, rows, threadIdx.x);
   __syncthreads();
   for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x)
-    ppt::ccl_local_unite(in, sp, l);
+    ppt::ccl_local_runs(rows, sp, l);
   __syncthreads();
   for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x)
-    ppt::ccl_local_store(t, tg, in, sp, parent, l);
+    ppt::ccl_local_unite(rows, sp, l);
+  __syncthreads();
+  for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x)
+    ppt::ccl_local_store(t, tg, sp, parent, l);
 }
 
 __global__ void ccl_border(const uint8_t* mask, int pol, int* parent,
@@ -281,8 +292,7 @@ __global__ void ws_init(const uint8_t* marker, const int* parent,
   int lab = marker_label(marker, parent, cnt, min_size, i, g);
   bool seeded = lab > 0 && blob[i];
   cost[i] = seeded ? energy_sh[i] : kIntMax;
-  packed[i] = seeded ? (unsigned long long)lab
-                     : ((unsigned long long)kIntMax << 32);
+  packed[i] = seeded ? (unsigned long long)lab : ppt::kUnreached;
 }
 
 // K2's seed pass: arbitrary positive int32 markers inside `mask`
@@ -296,49 +306,63 @@ __global__ void ws_seed(const int* energy_q, const int* markers,
   int e = (int)((unsigned)energy_q[i] << kHopBits);
   energy_sh[i] = e;
   cost[i] = seeded ? e : kIntMax;
-  packed[i] = seeded ? (unsigned long long)(unsigned)m
-                     : ((unsigned long long)kIntMax << 32);
+  packed[i] = seeded ? (unsigned long long)(unsigned)m : ppt::kUnreached;
 }
 
 // One sweep of a phase over the tiles, in `order`; each block relaxes
 // its tile to the local fixpoint against its halo (the ppt:: steps of
-// post_proc_tiles.cuh) and writes back what fell. A sweep whose
-// predecessor in the batch (`prev`; null for the first) changed nothing
-// returns at once; a sweep in which anything fell sets *changed.
+// post_proc_tiles.cuh) and writes back what fell, if the tile is active
+// (ppt::tile_active: `done` holds the sweep before's stores, null in a
+// phase's first sweep). Each block that runs writes into `mark[tile]`
+// whether it stored a fall. A sweep whose predecessor in the batch
+// (`prev`; null for the first) changed nothing returns at once; a sweep
+// in which anything fell sets *changed.
 
 // phase 1: the packed minimax cost
 __global__ void __launch_bounds__(ppt::kTileThreads)
     ws_cost_tiles(int* cost, const int* energy_sh, const uint8_t* mask,
-                  ppt::TileGrid tg, int order, const int* prev, int* changed) {
+                  ppt::TileGrid tg, int order, const uint8_t* done,
+                  uint8_t* mark, const int* prev, int* changed) {
   if (prev && !*prev) return;
   __shared__ int hc[ppt::kHaloPx];
-  ppt::Tile t = ppt::tile_at(tg, ppt::sweep_index(blockIdx.x, tg.tiles, order));
+  int64_t b = ppt::sweep_index(blockIdx.x, tg.tiles, order);
+  ppt::Tile t = ppt::tile_at(tg, b);
   ppt::CostLane ln;
-  if (!__syncthreads_or(ppt::cost_lane_load(ln, t, tg, cost, energy_sh, mask,
-                                            threadIdx.x, order)))
+  if (!ppt::tile_active(tg, done, b) ||
+      !__syncthreads_or(ppt::cost_lane_load(ln, t, tg, cost, energy_sh, mask,
+                                            threadIdx.x, order))) {
+    if (threadIdx.x == 0) mark[b] = 0;
     return;
+  }
   for (int hl = threadIdx.x; hl < ppt::kHaloPx; hl += blockDim.x)
     hc[hl] = ppt::halo_value(t, tg, cost, hl, kIntMax);
   __syncthreads();
   while (__syncthreads_or(ppt::cost_lane_relax(ln, hc))) {
   }
-  if (__syncthreads_or(ppt::cost_lane_store(ln, t, tg, cost, threadIdx.x,
-                                            order)) &&
-      threadIdx.x == 0)
-    *changed = 1;
+  bool fell = __syncthreads_or(
+      ppt::cost_lane_store(ln, t, tg, cost, threadIdx.x, order));
+  if (threadIdx.x == 0) {
+    mark[b] = fell;
+    if (fell) *changed = 1;
+  }
 }
 
 // phase 2: (hops, label) along the edges that attain the fixed cost
 __global__ void __launch_bounds__(ppt::kTileThreads)
     ws_label_tiles(const int* cost, const int* energy_sh, const uint8_t* mask,
                    unsigned long long* packed, ppt::TileGrid tg, int order,
-                   const int* prev, int* changed) {
+                   const uint8_t* done, uint8_t* mark, const int* prev,
+                   int* changed) {
   if (prev && !*prev) return;
   __shared__ int hc[ppt::kHaloPx];
   __shared__ unsigned long long hv[ppt::kHaloPx];
-  ppt::Tile t = ppt::tile_at(tg, ppt::sweep_index(blockIdx.x, tg.tiles, order));
-  if (!__syncthreads_or(ppt::lane_in_mask(t, tg, mask, threadIdx.x, order)))
+  int64_t b = ppt::sweep_index(blockIdx.x, tg.tiles, order);
+  ppt::Tile t = ppt::tile_at(tg, b);
+  if (!ppt::tile_active(tg, done, b) ||
+      !__syncthreads_or(ppt::lane_in_mask(t, tg, mask, threadIdx.x, order))) {
+    if (threadIdx.x == 0) mark[b] = 0;
     return;
+  }
   for (int hl = threadIdx.x; hl < ppt::kHaloPx; hl += blockDim.x) {
     hc[hl] = ppt::halo_value(t, tg, cost, hl, kIntMax);
     hv[hl] = ppt::halo_value(t, tg, (const unsigned long long*)packed, hl,
@@ -347,14 +371,18 @@ __global__ void __launch_bounds__(ppt::kTileThreads)
   __syncthreads();
   ppt::LabelLane ln;
   if (!__syncthreads_or(ppt::label_lane_load(ln, t, tg, hc, energy_sh, mask,
-                                             packed, threadIdx.x, order)))
+                                             packed, threadIdx.x, order))) {
+    if (threadIdx.x == 0) mark[b] = 0;
     return;
+  }
   while (__syncthreads_or(ppt::label_lane_relax(ln, hv))) {
   }
-  if (__syncthreads_or(ppt::label_lane_store(ln, t, tg, packed, threadIdx.x,
-                                             order)) &&
-      threadIdx.x == 0)
-    *changed = 1;
+  bool fell = __syncthreads_or(
+      ppt::label_lane_store(ln, t, tg, packed, threadIdx.x, order));
+  if (threadIdx.x == 0) {
+    mark[b] = fell;
+    if (fell) *changed = 1;
+  }
 }
 
 __global__ void ws_final(const uint8_t* blob, const unsigned long long* packed,
@@ -388,11 +416,12 @@ struct Workspace {
   unsigned long long* packed;
   int *parent, *cnt, *energy_sh, *cost, *flags;
   float* dist;
-  uint8_t *blob, *marker, *tmp;
+  uint8_t *blob, *marker, *tmp, *tile_flags;
 };
 
-// carve the workspace out of `base` (null: only count); returns its size
-int64_t carve(char* base, int64_t total, Workspace* ws) {
+// carve the workspace of `total` pixels in `tiles` tiles out of `base`
+// (null: only count); returns its size
+int64_t carve(char* base, int64_t total, int64_t tiles, Workspace* ws) {
   int64_t off = 0;
   auto take = [&](int64_t bytes) {
     char* r = base ? base + off : nullptr;
@@ -410,6 +439,7 @@ int64_t carve(char* base, int64_t total, Workspace* ws) {
   w.marker = (uint8_t*)take(total);
   w.tmp = (uint8_t*)take(total);
   w.flags = (int*)take(4 * kSweepBatch);
+  w.tile_flags = (uint8_t*)take(2 * tiles);
   if (ws) *ws = w;
   return off;
 }
@@ -418,9 +448,10 @@ int64_t carve(char* base, int64_t total, Workspace* ws) {
 struct WsWorkspace {
   unsigned long long* packed;
   int *energy_sh, *cost, *flags;
+  uint8_t* tile_flags;
 };
 
-int64_t carve_ws(char* base, int64_t total, WsWorkspace* ws) {
+int64_t carve_ws(char* base, int64_t total, int64_t tiles, WsWorkspace* ws) {
   int64_t off = 0;
   auto take = [&](int64_t bytes) {
     char* r = base ? base + off : nullptr;
@@ -432,6 +463,7 @@ int64_t carve_ws(char* base, int64_t total, WsWorkspace* ws) {
   w.energy_sh = (int*)take(total * 4);
   w.cost = (int*)take(total * 4);
   w.flags = (int*)take(4 * kSweepBatch);
+  w.tile_flags = (uint8_t*)take(2 * tiles);
   if (ws) *ws = w;
   return off;
 }
@@ -440,7 +472,7 @@ int64_t carve_ws(char* base, int64_t total, WsWorkspace* ws) {
 // index of its 4-connected component in its map (off the mask: i)
 cudaError_t ccl(const uint8_t* mask, int pol, int* parent, Geom g,
                 unsigned blocks, cudaStream_t s) {
-  ppt::TileGrid tg = ppt::tile_grid((int)(g.total / g.hw), g.h, g.w);
+  ppt::TileGrid tg = tile_grid(g);
   ccl_local<<<(unsigned)tg.tiles, ppt::kTileThreads, 0, s>>>(mask, pol,
                                                              parent, tg);
   ccl_border<<<(unsigned)tg.tiles, ppt::kBorderPairs, 0, s>>>(mask, pol,
@@ -459,18 +491,24 @@ cudaError_t sizes(const uint8_t* mask, const int* parent, int* cnt, Geom g,
 
 // Launch sweeps until one changes nothing. Sweeps go out kSweepBatch at
 // a time, each with its own changed flag; one copy of the batch's flags
-// to the host (one synchronisation) decides whether to go on. A fixpoint
-// takes at most one sweep per pixel of the longest path, so more sweeps
-// than pixels means a fault, reported as kNoFixpoint. `*sweeps` counts
-// the sweeps that ran, the last (unchanged) one included.
+// to the host (one synchronisation) decides whether to go on. Sweep k
+// of the phase (from 0) reads the tiles' stores of sweep k - 1 from one
+// half of `tile_flags` (none for k = 0) and writes its own into the
+// other. A fixpoint takes at most one sweep per pixel of the longest
+// path, so more sweeps than pixels means a fault, reported as
+// kNoFixpoint. `*sweeps` counts the sweeps that ran, the last
+// (unchanged) one included.
 template <typename Sweep>
-int relax(int* flags, int64_t max_sweeps, cudaStream_t s, int64_t* sweeps,
-          Sweep sweep) {
+int relax(int* flags, uint8_t* tile_flags, ppt::TileGrid tg,
+          int64_t max_sweeps, cudaStream_t s, int64_t* sweeps, Sweep sweep) {
   for (int64_t done = 0; done <= max_sweeps; done += kSweepBatch) {
     cudaError_t err = cudaMemsetAsync(flags, 0, kSweepBatch * sizeof(int), s);
     if (err != cudaSuccess) return err;
     for (int k = 0; k < kSweepBatch; ++k) {
-      sweep(k ? flags + k - 1 : nullptr, flags + k);
+      int64_t j = done + k;
+      sweep(j ? tile_flags + ((j - 1) & 1) * tg.tiles : nullptr,
+            tile_flags + (j & 1) * tg.tiles, k ? flags + k - 1 : nullptr,
+            flags + k);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     int changed[kSweepBatch];
@@ -490,24 +528,30 @@ int relax(int* flags, int64_t max_sweeps, cudaStream_t s, int64_t* sweeps,
 
 // watershed phase 1: relax the packed cost over `mask` to its fixpoint
 int relax_cost(int* cost, const int* energy_sh, const uint8_t* mask,
-               int* flags, Geom g, int order, cudaStream_t s,
-               int64_t* sweeps) {
-  ppt::TileGrid tg = ppt::tile_grid((int)(g.total / g.hw), g.h, g.w);
-  return relax(flags, g.total + 1, s, sweeps, [&](const int* prev, int* f) {
-    ws_cost_tiles<<<(unsigned)tg.tiles, ppt::kTileThreads, 0, s>>>(
-        cost, energy_sh, mask, tg, order, prev, f);
-  });
+               int* flags, uint8_t* tile_flags, Geom g, int order,
+               cudaStream_t s, int64_t* sweeps) {
+  ppt::TileGrid tg = tile_grid(g);
+  return relax(flags, tile_flags, tg, g.total + 1, s, sweeps,
+               [&](const uint8_t* done, uint8_t* mark, const int* prev,
+                   int* f) {
+                 ws_cost_tiles<<<(unsigned)tg.tiles, ppt::kTileThreads, 0,
+                                 s>>>(cost, energy_sh, mask, tg, order, done,
+                                      mark, prev, f);
+               });
 }
 
 // watershed phase 2: (hops, label) ties along cost-attaining edges
 int relax_labels(const int* cost, const int* energy_sh, const uint8_t* mask,
-                 unsigned long long* packed, int* flags, Geom g, int order,
-                 cudaStream_t s, int64_t* sweeps) {
-  ppt::TileGrid tg = ppt::tile_grid((int)(g.total / g.hw), g.h, g.w);
-  return relax(flags, g.total + 1, s, sweeps, [&](const int* prev, int* f) {
-    ws_label_tiles<<<(unsigned)tg.tiles, ppt::kTileThreads, 0, s>>>(
-        cost, energy_sh, mask, packed, tg, order, prev, f);
-  });
+                 unsigned long long* packed, int* flags, uint8_t* tile_flags,
+                 Geom g, int order, cudaStream_t s, int64_t* sweeps) {
+  ppt::TileGrid tg = tile_grid(g);
+  return relax(flags, tile_flags, tg, g.total + 1, s, sweeps,
+               [&](const uint8_t* done, uint8_t* mark, const int* prev,
+                   int* f) {
+                 ws_label_tiles<<<(unsigned)tg.tiles, ppt::kTileThreads, 0,
+                                  s>>>(cost, energy_sh, mask, packed, tg,
+                                       order, done, mark, prev, f);
+               });
 }
 
 // The optional split of one call: CUDA events at its stage boundaries
@@ -561,7 +605,7 @@ int proc_tail(const uint8_t* blb, const float* sob, int* out, void* ws_p,
               int sweep_order, int skip, cudaStream_t s, StageClock& clock) {
   unsigned blocks = (unsigned)((g.total + kThreads - 1) / kThreads);
   Workspace ws;
-  carve((char*)ws_p, g.total, &ws);
+  carve((char*)ws_p, g.total, tile_grid(g).tiles, &ws);
   // skip = rmsmall: no size counts, every component kept
   bool rm = skip != kSkipRmsmall;
   int blob_min = rm ? blob_min_size : 0, marker_min = rm ? marker_min_size : 0;
@@ -613,8 +657,8 @@ int proc_tail(const uint8_t* blb, const float* sob, int* out, void* ws_p,
   if ((err = cudaGetLastError())) return err;
   if ((err = clock.mark(5))) return err;
   // 6. phase 1: packed minimax cost
-  rc = relax_cost(ws.cost, ws.energy_sh, ws.blob, ws.flags, g, sweep_order,
-                  s, &clock.sweeps[0]);
+  rc = relax_cost(ws.cost, ws.energy_sh, ws.blob, ws.flags, ws.tile_flags, g,
+                  sweep_order, s, &clock.sweeps[0]);
   if (rc) return rc;
   if (skip == kSkipWsPhase2) {
     phase1_out<<<blocks, kThreads, 0, s>>>(ws.blob, ws.cost, ws.packed, out,
@@ -623,8 +667,8 @@ int proc_tail(const uint8_t* blb, const float* sob, int* out, void* ws_p,
   }
   if ((err = clock.mark(6))) return err;
   // 7. phase 2: (hops, label) ties along cost-attaining edges
-  rc = relax_labels(ws.cost, ws.energy_sh, ws.blob, ws.packed, ws.flags, g,
-                    sweep_order, s, &clock.sweeps[1]);
+  rc = relax_labels(ws.cost, ws.energy_sh, ws.blob, ws.packed, ws.flags,
+                    ws.tile_flags, g, sweep_order, s, &clock.sweeps[1]);
   if (rc) return rc;
   ws_final<<<blocks, kThreads, 0, s>>>(ws.blob, ws.packed, out, g.total);
   return cudaGetLastError();
@@ -636,18 +680,18 @@ int watershed(const int* energy_q, const int* markers, const uint8_t* mask,
               StageClock& clock) {
   unsigned blocks = (unsigned)((g.total + kThreads - 1) / kThreads);
   WsWorkspace ws;
-  carve_ws((char*)ws_p, g.total, &ws);
+  carve_ws((char*)ws_p, g.total, tile_grid(g).tiles, &ws);
   cudaError_t err = clock.mark(4);
   if (err) return err;
   ws_seed<<<blocks, kThreads, 0, s>>>(energy_q, markers, mask, ws.energy_sh,
                                       ws.cost, ws.packed, g.total);
   if ((err = cudaGetLastError()) || (err = clock.mark(5))) return err;
-  int rc = relax_cost(ws.cost, ws.energy_sh, mask, ws.flags, g, sweep_order,
-                      s, &clock.sweeps[0]);
+  int rc = relax_cost(ws.cost, ws.energy_sh, mask, ws.flags, ws.tile_flags,
+                      g, sweep_order, s, &clock.sweeps[0]);
   if (rc) return rc;
   if ((err = clock.mark(6))) return err;
-  rc = relax_labels(ws.cost, ws.energy_sh, mask, ws.packed, ws.flags, g,
-                    sweep_order, s, &clock.sweeps[1]);
+  rc = relax_labels(ws.cost, ws.energy_sh, mask, ws.packed, ws.flags,
+                    ws.tile_flags, g, sweep_order, s, &clock.sweeps[1]);
   if (rc) return rc;
   ws_final<<<blocks, kThreads, 0, s>>>(mask, ws.packed, out, g.total);
   return cudaGetLastError();
@@ -655,8 +699,9 @@ int watershed(const int* energy_q, const int* markers, const uint8_t* mask,
 
 }  // namespace
 
-extern "C" int64_t hnt_proc_tail_workspace_bytes(int64_t total) {
-  return carve(nullptr, total, nullptr);
+extern "C" int64_t hnt_proc_tail_workspace_bytes(int n, int h, int w) {
+  Geom g{h, w, (int64_t)h * w, (int64_t)n * h * w};
+  return carve(nullptr, g.total, tile_grid(g).tiles, nullptr);
 }
 
 extern "C" const char* hnt_error_string(int err) {
@@ -665,7 +710,7 @@ extern "C" const char* hnt_error_string(int err) {
 }
 
 // blb uint8 [n, h, w], sob float32 [n, h, w] -> out int32 [n, h, w];
-// workspace: hnt_proc_tail_workspace_bytes(n * h * w) bytes, 256-aligned;
+// workspace: hnt_proc_tail_workspace_bytes(n, h, w) bytes, 256-aligned;
 // skip: a Skip code (0 = the whole tail, K1); stats: null, or a double
 // [kStatWords] that receives the call's split (the call then waits for
 // its end). Returns 0 or a cudaError_t.
@@ -684,12 +729,13 @@ extern "C" int hnt_proc_tail(const void* blb_p, const void* sob_p, void* out_p,
   return rc ? rc : clock.finish();
 }
 
-extern "C" int64_t hnt_watershed_workspace_bytes(int64_t total) {
-  return carve_ws(nullptr, total, nullptr);
+extern "C" int64_t hnt_watershed_workspace_bytes(int n, int h, int w) {
+  Geom g{h, w, (int64_t)h * w, (int64_t)n * h * w};
+  return carve_ws(nullptr, g.total, tile_grid(g).tiles, nullptr);
 }
 
 // K2: energy_q int32, markers int32, mask uint8 [n, h, w] -> out int32
-// [n, h, w]; workspace: hnt_watershed_workspace_bytes(n * h * w) bytes,
+// [n, h, w]; workspace: hnt_watershed_workspace_bytes(n, h, w) bytes,
 // 256-aligned; stats as for hnt_proc_tail (stages 0-3 take no time).
 // Returns 0 or a cudaError_t.
 extern "C" int hnt_watershed(const void* energy_p, const void* markers_p,

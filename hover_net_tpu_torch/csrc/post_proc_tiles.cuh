@@ -9,9 +9,9 @@
 // row and column of tiles may be cut by the map's edge); tiles never
 // span two maps. One block of kTileThreads threads works one tile; in
 // the watershed thread `tid` owns the kPxPerThread pixels
-// sweep_index(tid + k * kTileThreads, kTilePx, order) and keeps their
-// state in registers (a Lane), while the tile and a 1-pixel halo of
-// costs (and labels) live in shared memory.
+// lane_pixel(tid, k, order) and keeps their state in registers (a
+// Lane), while the tile and a 1-pixel halo of costs (and labels) live in
+// shared memory.
 
 #pragma once
 
@@ -181,32 +181,65 @@ PPT_HD void unite(int* parent, int a, int b) {
   }
 }
 
-// Local pass, step 1 (pixel l): its shared parent is itself; `in` says
-// whether it lies in the map and in the mask.
+// count of leading zero bits
+PPT_HD int clz32(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __clz(x);
+#else
+  return x ? __builtin_clz(x) : 32;
+#endif
+}
+
+// The local pass works on runs: a row's pixels of the mask that follow
+// each other without a gap share one root from the start, the run's
+// first pixel, and unions are only made between rows.
+
+// Local pass, step 1 (pixel l): whether it lies in the map and in the
+// mask.
 PPT_HD void ccl_local_init(const Tile& t, const TileGrid& g,
-                           const uint8_t* mask, int pol, int* sp,
-                           uint8_t* in, int l) {
+                           const uint8_t* mask, int pol, uint8_t* in, int l) {
   int64_t gi;
   in[l] = tile_pixel(t, g, l, &gi) && in_mask(mask, pol, gi);
-  sp[l] = l;
 }
 
-// Local pass, step 2 (pixel l): unite with its left and upper
-// neighbours inside the tile, in shared memory.
-PPT_HD void ccl_local_unite(const uint8_t* in, int* sp, int l) {
-  if (!in[l]) return;
-  if (l % kTileW > 0 && in[l - 1]) unite<false>(sp, l, l - 1);
-  if (l >= kTileW && in[l - kTileW]) unite<false>(sp, l, l - kTileW);
+// Step 2 (row r): the row's pixels of the mask as bits (bit c: column c).
+PPT_HD void ccl_row_bits(const uint8_t* in, unsigned* rows, int r) {
+  unsigned bits = 0;
+  for (int c = 0; c < kTileW; ++c) bits |= (unsigned)in[r * kTileW + c] << c;
+  rows[r] = bits;
 }
 
-// Local pass, step 3 (pixel l): the global index of its local root (of
-// itself off the mask) into `parent`.
-PPT_HD void ccl_local_store(const Tile& t, const TileGrid& g,
-                            const uint8_t* in, const int* sp, int* parent,
-                            int l) {
+// the first column of the run that holds column c of a row
+PPT_HD int run_start(unsigned bits, int c) {
+  unsigned gaps = ~bits & ((1u << c) - 1u);
+  return gaps ? 32 - clz32(gaps) : 0;
+}
+
+// Step 3 (pixel l): its shared parent is its run's first pixel (itself
+// off the mask).
+PPT_HD void ccl_local_runs(const unsigned* rows, int* sp, int l) {
+  int r = l / kTileW, c = l - r * kTileW;
+  sp[l] = rows[r] >> c & 1u ? r * kTileW + run_start(rows[r], c) : l;
+}
+
+// Step 4 (pixel l): unite its run with the run above, once for each
+// stretch of columns where both rows are in the mask (at its first
+// column), in shared memory.
+PPT_HD void ccl_local_unite(const unsigned* rows, int* sp, int l) {
+  int r = l / kTileW, c = l - r * kTileW;
+  if (r == 0) return;
+  unsigned both = rows[r] & rows[r - 1];
+  if ((both >> c & 1u) && (c == 0 || !(both >> (c - 1) & 1u)))
+    unite<false>(sp, l, l - kTileW);
+}
+
+// Step 5 (pixel l): the global index of its local root (of itself off
+// the mask) into `parent`.
+PPT_HD void ccl_local_store(const Tile& t, const TileGrid& g, const int* sp,
+                            int* parent, int l) {
   int64_t gi;
-  if (!tile_pixel(t, g, l, &gi)) return;
-  parent[gi] = (int)tile_index(t, g, in[l] ? find_root(sp, l) : l);
+  if (tile_pixel(t, g, l, &gi))
+    parent[gi] = (int)tile_index(t, g, find_root(sp, l));
 }
 
 // Border merge: pair k of a tile is a pixel `a` on its upper edge (k <
@@ -256,12 +289,32 @@ PPT_HD int cross_cost(int q_c, int energy_sh) {
   return energy_sh > lev ? energy_sh : q_c + ((q_c & kHopMask) != kHopMask);
 }
 
+// Whether a sweep relaxes tile b. `done` holds a byte a tile from the
+// sweep before: whether the tile stored a fall (null in a phase's first
+// sweep: every tile). A tile none of whose four neighbours stored a fall
+// is still at its fixpoint against its halo: it relaxed against those
+// values when it last ran, or its neighbours would have woken it since.
+PPT_HD bool tile_active(const TileGrid& g, const uint8_t* done, int64_t b) {
+  if (!done) return true;
+  int64_t r = b % ((int64_t)g.tiles_y * g.tiles_x);
+  int ty = (int)(r / g.tiles_x), tx = (int)(r - (int64_t)ty * g.tiles_x);
+  return (tx > 0 && done[b - 1]) || (tx + 1 < g.tiles_x && done[b + 1]) ||
+         (ty > 0 && done[b - g.tiles_x]) ||
+         (ty + 1 < g.tiles_y && done[b + g.tiles_x]);
+}
+
 // the halo's value at hl: the map's, or `outside` beyond its edge
 template <typename T>
 PPT_HD T halo_value(const Tile& t, const TileGrid& g, const T* src, int hl,
                     T outside) {
   int64_t gi;
   return halo_pixel(t, g, hl, &gi) ? src[gi] : outside;
+}
+
+// Pixel k of thread tid's lane: in order 0 a warp holds one row of the
+// tile (coalesced loads and stores).
+PPT_HD int lane_pixel(int tid, int k, int order) {
+  return (int)sweep_index(tid + k * kTileThreads, kTilePx, order);
 }
 
 // the four neighbours' offsets in the halo array
@@ -276,9 +329,7 @@ PPT_HD bool lane_in_mask(const Tile& t, const TileGrid& g, const uint8_t* mask,
   PPT_UNROLL
   for (int k = 0; k < kPxPerThread; ++k) {
     int64_t gi;
-    any |= tile_pixel(t, g,
-                      (int)sweep_index(tid + k * kTileThreads, kTilePx, order),
-                      &gi) && mask[gi];
+    any |= tile_pixel(t, g, lane_pixel(tid, k, order), &gi) && mask[gi];
   }
   return any;
 }
@@ -296,7 +347,7 @@ PPT_HD bool cost_lane_load(CostLane& ln, const Tile& t, const TileGrid& g,
   bool any = false;
   PPT_UNROLL
   for (int k = 0; k < kPxPerThread; ++k) {
-    int l = (int)sweep_index(tid + k * kTileThreads, kTilePx, order);
+    int l = lane_pixel(tid, k, order);
     int64_t gi;
     ln.h[k] = -1;
     if (tile_pixel(t, g, l, &gi) && mask[gi]) {
@@ -338,9 +389,7 @@ PPT_HD bool cost_lane_store(const CostLane& ln, const Tile& t,
   PPT_UNROLL
   for (int k = 0; k < kPxPerThread; ++k) {
     if (ln.h[k] < 0 || ln.c[k] >= ln.c0[k]) continue;
-    cost[tile_index(
-        t, g, (int)sweep_index(tid + k * kTileThreads, kTilePx, order))] =
-        ln.c[k];
+    cost[tile_index(t, g, lane_pixel(tid, k, order))] = ln.c[k];
     any = true;
   }
   return any;
@@ -365,7 +414,7 @@ PPT_HD bool label_lane_load(LabelLane& ln, const Tile& t, const TileGrid& g,
   bool any = false;
   PPT_UNROLL
   for (int k = 0; k < kPxPerThread; ++k) {
-    int l = (int)sweep_index(tid + k * kTileThreads, kTilePx, order);
+    int l = lane_pixel(tid, k, order);
     int64_t gi;
     ln.h[k] = -1;
     if (!tile_pixel(t, g, l, &gi) || !mask[gi]) continue;
@@ -422,9 +471,7 @@ PPT_HD bool label_lane_store(const LabelLane& ln, const Tile& t,
   PPT_UNROLL
   for (int k = 0; k < kPxPerThread; ++k) {
     if (ln.h[k] < 0 || ln.v[k] >= ln.v0[k]) continue;
-    packed[tile_index(
-        t, g, (int)sweep_index(tid + k * kTileThreads, kTilePx, order))] =
-        ln.v[k];
+    packed[tile_index(t, g, lane_pixel(tid, k, order))] = ln.v[k];
     any = true;
   }
   return any;

@@ -152,7 +152,7 @@ def read_stats(buf, stats) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.hnt_proc_tail_workspace_bytes.restype = ctypes.c_int64
-    lib.hnt_proc_tail_workspace_bytes.argtypes = [ctypes.c_int64]
+    lib.hnt_proc_tail_workspace_bytes.argtypes = [ctypes.c_int] * 3
     lib.hnt_proc_tail.restype = ctypes.c_int
     lib.hnt_proc_tail.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -161,7 +161,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,
     ]
     lib.hnt_watershed_workspace_bytes.restype = ctypes.c_int64
-    lib.hnt_watershed_workspace_bytes.argtypes = [ctypes.c_int64]
+    lib.hnt_watershed_workspace_bytes.argtypes = [ctypes.c_int] * 3
     lib.hnt_watershed.restype = ctypes.c_int
     lib.hnt_watershed.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -197,7 +197,7 @@ def _proc_tail_cuda(blb, sob, marker_min_size, blob_min_size, sweep_order,
     lib = build()
     with torch.cuda.device(blb.device):
         out = torch.empty((n, h, w), dtype=torch.int32, device=blb.device)
-        ws = torch.empty(lib.hnt_proc_tail_workspace_bytes(n * h * w),
+        ws = torch.empty(lib.hnt_proc_tail_workspace_bytes(n, h, w),
                          dtype=torch.uint8, device=blb.device)
         stream = torch.cuda.current_stream(blb.device).cuda_stream
         buf = stats_buffer(stats)

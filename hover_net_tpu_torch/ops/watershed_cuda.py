@@ -64,7 +64,7 @@ def _watershed_cuda(energy_q, markers, mask, sweep_order, stats):
     mask = mask.to(torch.bool).contiguous().view(torch.uint8)
     lib = build()
     with torch.cuda.device(out.device):
-        ws = torch.empty(lib.hnt_watershed_workspace_bytes(n * h * w),
+        ws = torch.empty(lib.hnt_watershed_workspace_bytes(n, h, w),
                          dtype=torch.uint8, device=out.device)
         stream = torch.cuda.current_stream(out.device).cuda_stream
         buf = stats_buffer(stats)

@@ -30,14 +30,17 @@ void ccl(const uint8_t* mask, int pol, int* parent, int n, int h, int w,
   TileGrid g = tile_grid(n, h, w);
   std::vector<int> sp(kTilePx);
   std::vector<uint8_t> in(kTilePx);
+  std::vector<unsigned> rows(kTileH);
   for (int64_t bb = 0; bb < g.tiles; ++bb) {
     Tile t = tile_at(g, mode ? g.tiles - 1 - bb : bb);
     for (int l = 0; l < kTilePx; ++l)
-      ccl_local_init(t, g, mask, pol, sp.data(), in.data(), l);
+      ccl_local_init(t, g, mask, pol, in.data(), l);
+    for (int r = 0; r < kTileH; ++r) ccl_row_bits(in.data(), rows.data(), r);
+    for (int l = 0; l < kTilePx; ++l) ccl_local_runs(rows.data(), sp.data(), l);
     for (int ll = 0; ll < kTilePx; ++ll)
-      ccl_local_unite(in.data(), sp.data(), mode ? kTilePx - 1 - ll : ll);
+      ccl_local_unite(rows.data(), sp.data(), mode ? kTilePx - 1 - ll : ll);
     for (int l = 0; l < kTilePx; ++l)
-      ccl_local_store(t, g, in.data(), sp.data(), parent, l);
+      ccl_local_store(t, g, sp.data(), parent, l);
   }
   for (int64_t bb = 0; bb < g.tiles; ++bb) {
     Tile t = tile_at(g, mode ? g.tiles - 1 - bb : bb);
@@ -53,6 +56,7 @@ void ccl(const uint8_t* mask, int pol, int* parent, int n, int h, int w,
 
 template <typename Lane>
 struct Block {
+  int64_t b;
   Tile t;
   bool live = false;
   std::vector<Lane> lanes;
@@ -62,15 +66,19 @@ struct Block {
 
 // one sweep of ws_cost_tiles; true if a pixel fell
 bool cost_sweep(int* cost, const int* esh, const uint8_t* mask,
-                const TileGrid& g, int order, int mode) {
+                const TileGrid& g, int order, const uint8_t* done,
+                uint8_t* mark, int mode) {
   std::vector<Block<CostLane>> blocks(mode ? g.tiles : 1);
   auto start = [&](Block<CostLane>& B, int64_t bi) {
-    B.t = tile_at(g, sweep_index(bi, g.tiles, order));
+    B.b = sweep_index(bi, g.tiles, order);
+    B.t = tile_at(g, B.b);
     B.lanes.assign(kTileThreads, CostLane());
     B.live = false;
-    for (int tid = 0; tid < kTileThreads; ++tid)
-      B.live |= cost_lane_load(B.lanes[tid], B.t, g, cost, esh, mask, tid,
-                               order);
+    if (tile_active(g, done, B.b))
+      for (int tid = 0; tid < kTileThreads; ++tid)
+        B.live |= cost_lane_load(B.lanes[tid], B.t, g, cost, esh, mask, tid,
+                                 order);
+    mark[B.b] = 0;
     if (!B.live) return;
     B.hc.resize(kHaloPx);
     for (int hl = 0; hl < kHaloPx; ++hl)
@@ -86,6 +94,7 @@ bool cost_sweep(int* cost, const int* esh, const uint8_t* mask,
     bool stored = false;
     for (int tid = 0; tid < kTileThreads; ++tid)
       stored |= cost_lane_store(B.lanes[tid], B.t, g, cost, tid, order);
+    mark[B.b] = stored;
     return stored;
   };
   bool changed = false;
@@ -101,13 +110,16 @@ bool cost_sweep(int* cost, const int* esh, const uint8_t* mask,
 // one sweep of ws_label_tiles; true if a pixel fell
 bool label_sweep(const int* cost, const int* esh, const uint8_t* mask,
                  unsigned long long* packed, const TileGrid& g, int order,
-                 int mode) {
+                 const uint8_t* done, uint8_t* mark, int mode) {
   std::vector<Block<LabelLane>> blocks(mode ? g.tiles : 1);
   auto start = [&](Block<LabelLane>& B, int64_t bi) {
-    B.t = tile_at(g, sweep_index(bi, g.tiles, order));
+    B.b = sweep_index(bi, g.tiles, order);
+    B.t = tile_at(g, B.b);
     B.live = false;
-    for (int tid = 0; tid < kTileThreads; ++tid)
-      B.live |= lane_in_mask(B.t, g, mask, tid, order);
+    mark[B.b] = 0;
+    if (tile_active(g, done, B.b))
+      for (int tid = 0; tid < kTileThreads; ++tid)
+        B.live |= lane_in_mask(B.t, g, mask, tid, order);
     if (!B.live) return;
     B.hc.resize(kHaloPx);
     B.hv.resize(kHaloPx);
@@ -132,6 +144,7 @@ bool label_sweep(const int* cost, const int* esh, const uint8_t* mask,
     bool stored = false;
     for (int tid = 0; tid < kTileThreads; ++tid)
       stored |= label_lane_store(B.lanes[tid], B.t, g, packed, tid, order);
+    mark[B.b] = stored;
     return stored;
   };
   bool changed = false;
@@ -192,14 +205,26 @@ int ppt_watershed(const int* energy_q, const int* markers,
     cost[i] = seeded ? esh[i] : kIntMax;
     packed[i] = seeded ? (unsigned long long)(unsigned)markers[i] : kUnreached;
   }
+  // sweep j of a phase reads the tiles' stores of sweep j - 1 from one
+  // half and writes its own into the other (relax in post_proc_tail.cu)
+  std::vector<uint8_t> tile_flags(2 * g.tiles);
+  auto done = [&](int64_t j) {
+    return j ? tile_flags.data() + ((j - 1) & 1) * g.tiles : nullptr;
+  };
+  auto mark = [&](int64_t j) { return tile_flags.data() + (j & 1) * g.tiles; };
   sweeps[0] = sweeps[1] = 0;
-  do {
+  for (int64_t j = 0;; ++j) {
     if (++sweeps[0] > total + 1) return -1;
-  } while (cost_sweep(cost.data(), esh.data(), mask, g, order, mode));
-  do {
+    if (!cost_sweep(cost.data(), esh.data(), mask, g, order, done(j), mark(j),
+                    mode))
+      break;
+  }
+  for (int64_t j = 0;; ++j) {
     if (++sweeps[1] > total + 1) return -1;
-  } while (label_sweep(cost.data(), esh.data(), mask, packed.data(), g, order,
-                       mode));
+    if (!label_sweep(cost.data(), esh.data(), mask, packed.data(), g, order,
+                     done(j), mark(j), mode))
+      break;
+  }
   for (int64_t i = 0; i < total; ++i)
     out[i] = mask[i] ? (int)(unsigned)(packed[i] & 0xffffffffull) : 0;
   return 0;

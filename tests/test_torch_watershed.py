@@ -141,9 +141,10 @@ def canvas_case(cuda):
 
 
 # maps that stress the kernel's 32x32 tiles (tests/test_torch_pp_tiles.py):
-# a serpentine flooded from one marker, sides that are no multiples of 32,
-# a batch of 3 with components on the map edges
-TILING_CASES = ["serpentine", "ragged_97x45", "batch3_edges"]
+# a serpentine flooded from one marker at either end, sides that are no
+# multiples of 32, a batch of 3 with components on the map edges
+TILING_CASES = ["serpentine", "serpentine_up", "ragged_97x45",
+                "batch3_edges"]
 
 
 @pytest.mark.gpu
