@@ -143,14 +143,16 @@ ppt::TileGrid tile_grid(Geom g) {
 
 __global__ void __launch_bounds__(ppt::kTileThreads)
     ccl_local(const uint8_t* mask, int pol, int* parent, ppt::TileGrid tg) {
+  static_assert(ppt::kTileW == 32 && ppt::kTilePx % ppt::kTileThreads == 0,
+                "a warp ballot takes one whole tile row");
   __shared__ int sp[ppt::kTilePx];
-  __shared__ uint8_t in[ppt::kTilePx];
   __shared__ unsigned rows[ppt::kTileH];
   ppt::Tile t = ppt::tile_at(tg, blockIdx.x);
-  for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x)
-    ppt::ccl_local_init(t, tg, mask, pol, in, l);
-  __syncthreads();
-  if (threadIdx.x < ppt::kTileH) ppt::ccl_row_bits(in, rows, threadIdx.x);
+  for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x) {
+    unsigned bits = __ballot_sync(0xffffffffu,
+                                  ppt::ccl_pixel_in(t, tg, mask, pol, l));
+    if (l % ppt::kTileW == 0) rows[l / ppt::kTileW] = bits;
+  }
   __syncthreads();
   for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x)
     ppt::ccl_local_runs(rows, sp, l);

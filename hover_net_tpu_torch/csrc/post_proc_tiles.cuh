@@ -195,18 +195,12 @@ PPT_HD int clz32(unsigned x) {
 // first pixel, and unions are only made between rows.
 
 // Local pass, step 1 (pixel l): whether it lies in the map and in the
-// mask.
-PPT_HD void ccl_local_init(const Tile& t, const TileGrid& g,
-                           const uint8_t* mask, int pol, uint8_t* in, int l) {
+// mask; `rows[r]` gathers row r's answers as bits (bit c: column c), on
+// the card with one warp ballot a row (kTileW is the warp's width).
+PPT_HD bool ccl_pixel_in(const Tile& t, const TileGrid& g,
+                         const uint8_t* mask, int pol, int l) {
   int64_t gi;
-  in[l] = tile_pixel(t, g, l, &gi) && in_mask(mask, pol, gi);
-}
-
-// Step 2 (row r): the row's pixels of the mask as bits (bit c: column c).
-PPT_HD void ccl_row_bits(const uint8_t* in, unsigned* rows, int r) {
-  unsigned bits = 0;
-  for (int c = 0; c < kTileW; ++c) bits |= (unsigned)in[r * kTileW + c] << c;
-  rows[r] = bits;
+  return tile_pixel(t, g, l, &gi) && in_mask(mask, pol, gi);
 }
 
 // the first column of the run that holds column c of a row
@@ -215,14 +209,14 @@ PPT_HD int run_start(unsigned bits, int c) {
   return gaps ? 32 - clz32(gaps) : 0;
 }
 
-// Step 3 (pixel l): its shared parent is its run's first pixel (itself
+// Step 2 (pixel l): its shared parent is its run's first pixel (itself
 // off the mask).
 PPT_HD void ccl_local_runs(const unsigned* rows, int* sp, int l) {
   int r = l / kTileW, c = l - r * kTileW;
   sp[l] = rows[r] >> c & 1u ? r * kTileW + run_start(rows[r], c) : l;
 }
 
-// Step 4 (pixel l): unite its run with the run above, once for each
+// Step 3 (pixel l): unite its run with the run above, once for each
 // stretch of columns where both rows are in the mask (at its first
 // column), in shared memory.
 PPT_HD void ccl_local_unite(const unsigned* rows, int* sp, int l) {
@@ -233,7 +227,7 @@ PPT_HD void ccl_local_unite(const unsigned* rows, int* sp, int l) {
     unite<false>(sp, l, l - kTileW);
 }
 
-// Step 5 (pixel l): the global index of its local root (of itself off
+// Step 4 (pixel l): the global index of its local root (of itself off
 // the mask) into `parent`.
 PPT_HD void ccl_local_store(const Tile& t, const TileGrid& g, const int* sp,
                             int* parent, int l) {

@@ -29,13 +29,14 @@ void ccl(const uint8_t* mask, int pol, int* parent, int n, int h, int w,
          int mode) {
   TileGrid g = tile_grid(n, h, w);
   std::vector<int> sp(kTilePx);
-  std::vector<uint8_t> in(kTilePx);
   std::vector<unsigned> rows(kTileH);
   for (int64_t bb = 0; bb < g.tiles; ++bb) {
     Tile t = tile_at(g, mode ? g.tiles - 1 - bb : bb);
-    for (int l = 0; l < kTilePx; ++l)
-      ccl_local_init(t, g, mask, pol, in.data(), l);
-    for (int r = 0; r < kTileH; ++r) ccl_row_bits(in.data(), rows.data(), r);
+    for (int r = 0; r < kTileH; ++r) {  // the kernel's ballot of row r
+      rows[r] = 0;
+      for (int c = 0; c < kTileW; ++c)
+        rows[r] |= (unsigned)ccl_pixel_in(t, g, mask, pol, r * kTileW + c) << c;
+    }
     for (int l = 0; l < kTilePx; ++l) ccl_local_runs(rows.data(), sp.data(), l);
     for (int ll = 0; ll < kTilePx; ++ll)
       ccl_local_unite(rows.data(), sp.data(), mode ? kTilePx - 1 - ll : ll);
