@@ -253,7 +253,6 @@ def log_split(what, call, reps=10):
         + ", ".join(f"{a} + {b}" for a, b in sweeps))
     if any(min(sw) < 1 for sw in sweeps):
         raise AssertionError(f"{what}: a watershed phase ran no sweep")
-    return ms, sweeps
 
 
 def kernel_split(what, call, reps=3):

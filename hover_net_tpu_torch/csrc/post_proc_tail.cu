@@ -37,22 +37,26 @@
 // steps: union-find chains in the CCLs and, in the watershed, fronts
 // that move across the map one relaxation step at a time. The design
 // keeps those steps inside shared memory (post_proc_tiles.cuh):
-// - CCL (three launches): one 256-thread block per 32x32 tile unites the
-//   tile's pixels with shared-memory atomicMin (so the map-sized
-//   background of fill-holes no longer funnels every pixel's union into
-//   one global chain), then one thread per tile-border pair unites across
-//   tiles in global memory with path halving, then every pixel takes its
-//   root. Roots stay least indices, so labels are 1 + the component's
-//   first raster pixel, as in the plain version.
+// - CCL (three launches): one 256-thread block per 32x32 tile takes each
+//   tile row's mask as one warp ballot, roots every run of a row at its
+//   first pixel at once, and unites the runs of adjacent rows with
+//   shared-memory atomicMin (so the map-sized background of fill-holes
+//   costs a few unions a tile, not two a pixel funnelled into one global
+//   chain); then one thread per tile-border pair unites across tiles in
+//   global memory with path halving, once per stretch of joined pairs;
+//   then every pixel takes its root, one chain walk per distinct local
+//   root of a warp. Roots stay least indices, so labels are 1 + the
+//   component's first raster pixel, as in the plain version.
 // - Watershed: one sweep is one launch over the tiles; each block loads
 //   its tile and a 1-pixel halo into shared memory, relaxes the tile to
 //   its local fixpoint against the fixed halo (a block-wide barrier per
 //   step), and writes back the pixels that fell. A front thus crosses a
 //   whole tile per sweep, and a phase takes a few sweeps (a nucleus is
-//   smaller than a tile). The host launches sweeps kSweepBatch at a time,
-//   each with its own changed flag; a sweep whose predecessor changed
-//   nothing returns at once, and one copy of the batch's flags (one
-//   synchronisation) decides whether to go on.
+//   smaller than a tile); after a phase's first sweep only the tiles
+//   next to a tile that fell run. The host launches sweeps kSweepBatch
+//   at a time, each with its own changed flag; a sweep whose predecessor
+//   changed nothing returns at once, and one copy of the batch's flags
+//   (one synchronisation) decides whether to go on.
 //
 // Relaxing in place, tile by tile and with stale halos, is legal because
 // both phases relax a monotone operator from the top of a finite lattice,
@@ -105,7 +109,7 @@ using ppt::kHopBits;
 using ppt::kIntMax;
 constexpr int kThreads = 256;
 // sweeps launched between two host reads of their changed flags
-constexpr int kSweepBatch = 8;
+constexpr int kSweepBatch = 4;
 // returned when a relaxation exceeds its sweep bound (not a cudaError_t)
 constexpr int kNoFixpoint = 100000;
 // the optional split of one call (ops/post_proc_cuda.py STAGES): a double
@@ -133,13 +137,9 @@ ppt::TileGrid tile_grid(Geom g) {
 }
 
 // ---------------------------------------------------------------- CCL
-// Block-based union-find (the ppt:: steps of post_proc_tiles.cuh): one
-// block per tile roots each row's runs at their first pixel, unites the
-// runs of adjacent rows in shared memory and writes each pixel's local
-// root; one thread per tile-border pair unites across
-// tiles in global memory (path halving); every pixel then takes its
-// root. Roots are least indices (parent[x] <= x), so a root is its
-// component's first raster pixel.
+// Block-based union-find: the steps are ppt::'s (post_proc_tiles.cuh),
+// the design is in the note at the top of this file. Roots are least
+// indices (parent[x] <= x), so a root is its component's first pixel.
 
 __global__ void __launch_bounds__(ppt::kTileThreads)
     ccl_local(const uint8_t* mask, int pol, int* parent, ppt::TileGrid tg) {
@@ -161,20 +161,29 @@ __global__ void __launch_bounds__(ppt::kTileThreads)
     ppt::ccl_local_unite(rows, sp, l);
   __syncthreads();
   for (int l = threadIdx.x; l < ppt::kTilePx; l += blockDim.x)
-    ppt::ccl_local_store(t, tg, sp, parent, l);
+    ppt::ccl_local_store(t, tg, rows, sp, parent, l);
 }
 
 __global__ void ccl_border(const uint8_t* mask, int pol, int* parent,
                            ppt::TileGrid tg) {
-  int64_t a, b;
-  if (ppt::border_pair(ppt::tile_at(tg, blockIdx.x), tg, threadIdx.x, &a, &b))
-    ppt::ccl_border_merge(mask, pol, parent, a, b);
+  ppt::ccl_border_merge(ppt::tile_at(tg, blockIdx.x), tg, mask, pol, parent,
+                        threadIdx.x);
 }
 
+// Flatten: every pixel of the mask takes the root of its local root
+// p = parent[i]. Most lanes of a warp share p, so one lane walks each
+// distinct p's chain and hands the root to the others (every lane of the
+// warp takes part in the match and the shuffle).
 __global__ void ccl_roots(const uint8_t* mask, int pol, int* parent,
                           int64_t total) {
   int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i < total) ppt::ccl_flatten(mask, pol, parent, i);
+  bool in = i < total && ppt::in_mask(mask, pol, i);
+  int p = in ? parent[i] : -1;
+  int lead = __ffs(__match_any_sync(0xffffffffu, p)) - 1;
+  int root = in && (int)(threadIdx.x % 32) == lead
+                 ? ppt::find_root(parent, p) : 0;
+  root = __shfl_sync(0xffffffffu, root, lead);
+  if (in) parent[i] = root;
 }
 
 __global__ void count_sizes(const uint8_t* mask, int pol, const int* parent,
@@ -471,7 +480,8 @@ int64_t carve_ws(char* base, int64_t total, int64_t tiles, WsWorkspace* ws) {
 }
 
 // parent[i] of every pixel of the mask (pol 1: set, 0: clear): the least
-// index of its 4-connected component in its map (off the mask: i)
+// index of its 4-connected component in its map (off the mask: not
+// written, and read by no caller)
 cudaError_t ccl(const uint8_t* mask, int pol, int* parent, Geom g,
                 unsigned blocks, cudaStream_t s) {
   ppt::TileGrid tg = tile_grid(g);
@@ -503,11 +513,11 @@ cudaError_t sizes(const uint8_t* mask, const int* parent, int* cnt, Geom g,
 template <typename Sweep>
 int relax(int* flags, uint8_t* tile_flags, ppt::TileGrid tg,
           int64_t max_sweeps, cudaStream_t s, int64_t* sweeps, Sweep sweep) {
-  for (int64_t done = 0; done <= max_sweeps; done += kSweepBatch) {
+  for (int64_t base = 0; base <= max_sweeps; base += kSweepBatch) {
     cudaError_t err = cudaMemsetAsync(flags, 0, kSweepBatch * sizeof(int), s);
     if (err != cudaSuccess) return err;
     for (int k = 0; k < kSweepBatch; ++k) {
-      int64_t j = done + k;
+      int64_t j = base + k;
       sweep(j ? tile_flags + ((j - 1) & 1) * tg.tiles : nullptr,
             tile_flags + (j & 1) * tg.tiles, k ? flags + k - 1 : nullptr,
             flags + k);
@@ -520,7 +530,7 @@ int relax(int* flags, uint8_t* tile_flags, ppt::TileGrid tg,
     if ((err = cudaStreamSynchronize(s)) != cudaSuccess) return err;
     for (int k = 0; k < kSweepBatch; ++k) {
       if (!changed[k]) {
-        *sweeps = done + k + 1;
+        *sweeps = base + k + 1;
         return cudaSuccess;
       }
     }

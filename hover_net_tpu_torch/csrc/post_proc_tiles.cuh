@@ -227,12 +227,13 @@ PPT_HD void ccl_local_unite(const unsigned* rows, int* sp, int l) {
     unite<false>(sp, l, l - kTileW);
 }
 
-// Step 4 (pixel l): the global index of its local root (of itself off
-// the mask) into `parent`.
-PPT_HD void ccl_local_store(const Tile& t, const TileGrid& g, const int* sp,
-                            int* parent, int l) {
+// Step 4 (pixel l of the mask): the global index of its local root into
+// `parent` (nothing reads the parent of a pixel off the mask).
+PPT_HD void ccl_local_store(const Tile& t, const TileGrid& g,
+                            const unsigned* rows, const int* sp, int* parent,
+                            int l) {
   int64_t gi;
-  if (tile_pixel(t, g, l, &gi))
+  if ((rows[l / kTileW] >> (l % kTileW) & 1u) && tile_pixel(t, g, l, &gi))
     parent[gi] = (int)tile_index(t, g, find_root(sp, l));
 }
 
@@ -260,17 +261,23 @@ PPT_HD bool border_pair(const Tile& t, const TileGrid& g, int k, int64_t* a,
   return true;
 }
 
-PPT_HD void ccl_border_merge(const uint8_t* mask, int pol, int* parent,
-                             int64_t a, int64_t b) {
-  if (in_mask(mask, pol, a) && in_mask(mask, pol, b))
-    unite<true>(parent, (int)a, (int)b);
+// Merge pair k of tile t if both its pixels are in the mask, unless the
+// pair before it on the same edge is too: that pair's pixels neighbour
+// this pair's inside their own tiles, so it joins the same components.
+PPT_HD void ccl_border_merge(const Tile& t, const TileGrid& g,
+                             const uint8_t* mask, int pol, int* parent,
+                             int k) {
+  int64_t a, b;
+  if (!border_pair(t, g, k, &a, &b) || !in_mask(mask, pol, a) ||
+      !in_mask(mask, pol, b))
+    return;
+  int64_t pa, pb;
+  if (k % kTileW != 0 && border_pair(t, g, k - 1, &pa, &pb) &&
+      in_mask(mask, pol, pa) && in_mask(mask, pol, pb))
+    return;
+  unite<true>(parent, (int)a, (int)b);
 }
 
-// Flatten (pixel i): its root, from its local root on.
-PPT_HD void ccl_flatten(const uint8_t* mask, int pol, int* parent,
-                        int64_t i) {
-  if (in_mask(mask, pol, i)) parent[i] = find_root(parent, parent[i]);
-}
 
 // ----------------------------------------------------------- watershed
 // A sweep loads each tile with its halo, relaxes the tile to its local

@@ -24,7 +24,8 @@ using namespace ppt;
 
 namespace {
 
-// ccl_local, ccl_border and ccl_roots
+// ccl_local, ccl_border and ccl_roots (whose warps walk each shared
+// chain once; here every pixel walks its own, which gives the same roots)
 void ccl(const uint8_t* mask, int pol, int* parent, int n, int h, int w,
          int mode) {
   TileGrid g = tile_grid(n, h, w);
@@ -41,18 +42,16 @@ void ccl(const uint8_t* mask, int pol, int* parent, int n, int h, int w,
     for (int ll = 0; ll < kTilePx; ++ll)
       ccl_local_unite(rows.data(), sp.data(), mode ? kTilePx - 1 - ll : ll);
     for (int l = 0; l < kTilePx; ++l)
-      ccl_local_store(t, g, sp.data(), parent, l);
+      ccl_local_store(t, g, rows.data(), sp.data(), parent, l);
   }
   for (int64_t bb = 0; bb < g.tiles; ++bb) {
     Tile t = tile_at(g, mode ? g.tiles - 1 - bb : bb);
-    for (int kk = 0; kk < kBorderPairs; ++kk) {
-      int64_t a, b;
-      if (border_pair(t, g, mode ? kBorderPairs - 1 - kk : kk, &a, &b))
-        ccl_border_merge(mask, pol, parent, a, b);
-    }
+    for (int kk = 0; kk < kBorderPairs; ++kk)
+      ccl_border_merge(t, g, mask, pol, parent,
+                       mode ? kBorderPairs - 1 - kk : kk);
   }
-  for (int64_t i = 0; i < (int64_t)n * g.hw; ++i)
-    ccl_flatten(mask, pol, parent, i);
+  for (int64_t i = 0; i < (int64_t)n * g.hw; ++i)  // ccl_roots
+    if (in_mask(mask, pol, i)) parent[i] = find_root(parent, parent[i]);
 }
 
 template <typename Lane>

@@ -162,6 +162,11 @@ def case(name):
         mask[:, :, 0] |= rng.random((3, 40)) < 0.7
     elif name == "empty":
         mask = np.zeros((1, 50, 60), bool)
+    elif name == "tile_corners":  # 3-px components across two tile edges
+        mask = np.zeros((1, 100, 130), bool)
+        for y in range(32, 100, 32):
+            for x in range(31, 129, 32):
+                mask[0, y - 1:y + 1, x] = mask[0, y, x:x + 2] = True
     energy = rng.integers(0, 200, mask.shape).astype(np.int32)
     if name == "serpentine_up":  # one marker at the corridor's far end:
         markers = np.zeros(mask.shape, np.int32)  # the front runs up
@@ -179,7 +184,7 @@ def case(name):
 
 
 MAPS = ("background", "serpentine", "ragged_97x45", "ragged_33x70",
-        "batch3_edges", "empty", "tile_164")
+        "batch3_edges", "empty", "tile_corners", "tile_164")
 # the serpentine's mask with the marker at its other end, for the watershed
 WS_MAPS = MAPS + ("serpentine_up",)
 
@@ -204,6 +209,9 @@ def test_ccl_equals_plain(lib, name, mode):
         assert (want == 1).mean() > 0.8
     if name == "serpentine":
         assert len(np.unique(harness_ccl(lib, mask, 1, mode))) == 2
+    if name == "tile_corners":  # none split where it crosses two tiles
+        sizes = np.bincount(harness_ccl(lib, mask, 1, mode).ravel())[1:]
+        assert set(sizes[sizes > 0]) == {3}
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -229,7 +237,7 @@ def test_watershed_equals_plain(lib, name, order, mode):
         assert len(np.unique(want)) == 2
         if mode == 1:  # a front crosses one tile border per sweep
             assert sweeps.min() > 6
-    elif name != "empty":
+    elif name not in ("empty", "tile_corners"):  # (the latter: no markers)
         assert len(np.unique(want)) > 5
 
 
