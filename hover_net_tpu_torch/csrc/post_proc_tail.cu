@@ -108,7 +108,9 @@ namespace {
 using ppt::kHopBits;
 using ppt::kIntMax;
 constexpr int kThreads = 256;
-// sweeps launched between two host reads of their changed flags
+// sweeps launched between two host reads of their changed flags: a
+// phase takes 4-5 sweeps on nuclei maps (a nucleus is smaller than a
+// tile), so one read mostly ends a phase and few launches idle
 constexpr int kSweepBatch = 4;
 // returned when a relaxation exceeds its sweep bound (not a cudaError_t)
 constexpr int kNoFixpoint = 100000;
