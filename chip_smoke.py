@@ -66,7 +66,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version at 1148^2 (identical labels; skip="none" equals K1) with
    median times of both; then the stage probe as a user runs it
    (cli/probe_pp_stages --size 1000), which prints the per-stage split;
-11. prints the kernel table as one JSON line (K1's times at the WSI
+11. training as a user runs it: a synthetic CoNSeP-style dataset (three
+   1000^2 training images and one validation image of 1200 nuclei, 7 raw
+   types), 540^2 patches at a 164 step from cli/extract_patches, then
+   cli/run_train with the two default phases for one epoch each at
+   width 64 (frozen encoder at batch 16, then everything at batch 4;
+   float32, cuDNN's default TF32). Every step's loss is finite; after
+   phase 1 the frozen parameters (d0's unit towers, d1..d3) are
+   bit-identical to their seeded start while every other parameter and
+   d1..d3's BN statistics moved; after phase 2 every parameter moved;
+   both `net_epoch=1.tar` and stats.json (valid-np_dice) are written; the
+   tile manager loads phase 2's `.tar` and writes one 1000^2 image's
+   json; one width-8 phase-2 step on the card agrees with the CPU's:
+   with the model body in float64 every loss term and grad_norm within
+   1e-5 relative; in float32 the loss terms within 1e-3 with TF32 off
+   (the float32 bound of tests/test_torch_train_step_f32.py) and 2e-2
+   with TF32 on (40x TF32's unit roundoff 2^-11), grad_norm printed (a
+   random net's float32 gradient is chaotic). Prints each phase's ms per
+   step, patches/s and loader wait share, the peak device memory, and
+   each phase's step split by kernel group (torch.profiler) with the
+   device's idle share;
+12. prints the kernel table as one JSON line (K1's times at the WSI
    window batch; each kernel's bound from its inputs and outputs at the
    timed shape), the card line, and last
    {"ok": true, "device": {...}}.
@@ -1027,6 +1047,312 @@ def check_k4(canvas):
             "launches": launches}
 
 
+# ------------------------------------------------------------ training
+
+TRAIN_IMAGES = 3    # 1000^2 training images: 3 x 49 patches of 540^2
+TRAIN_WIDTH = 64    # the trainer's model, full width
+
+
+def write_consep(root, n_images, seed):
+    """A CoNSeP-style dataset: Images/*.png and Labels/*.mat with
+    `inst_map` and a raw `type_map` of 7 classes (the loader merges them
+    to 4 + background), synthetic nuclei made as bench.py makes them."""
+    import cv2
+    import scipy.io as sio
+
+    for sub in ("Images", "Labels"):
+        os.makedirs(os.path.join(root, sub))
+    for i in range(n_images):
+        inst = synth_inst(SRC_HW, SRC_HW, N_NUCLEI, seed + i)
+        rng = np.random.default_rng(seed + i)
+        types = rng.integers(1, 8, inst.max() + 1)
+        img = np.full((SRC_HW, SRC_HW, 3), 225, np.float32)
+        img += rng.normal(0, 4, img.shape)
+        img[inst > 0] = (np.array([120, 70, 150])
+                         + rng.normal(0, 10, (inst.max() + 1, 3)))[inst[inst > 0]]
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        cv2.imwrite(os.path.join(root, "Images", f"img{i}.png"),
+                    cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        sio.savemat(os.path.join(root, "Labels", f"img{i}.mat"),
+                    {"inst_map": inst,
+                     "type_map": np.where(inst > 0, types[inst], 0)})
+
+
+def step_stats(info, batch):
+    """(median ms of a step after the first two, patches/s over those
+    steps, the loader's share of their time)."""
+    steps, waits = info.step_s[2:], info.wait_s[2:]
+    total = sum(steps) + sum(waits)
+    return (statistics.median(steps) * 1e3, batch * len(steps) / total,
+            sum(waits) / total)
+
+
+def train_cpu_vs_cuda(patch_dir):
+    """One phase-2 step at width 8 from the same weights and batch on the
+    card and on the CPU, three ways: the model body in float64 (heads and
+    loss float32, as in the float64 parity test of
+    tests/test_torch_train_step.py), float32 with TF32 off, float32 with
+    cuDNN's default TF32. Returns {case: {term: relative difference}}."""
+    import torch
+
+    from hover_net_tpu_torch.data.train_pipeline import (
+        PatchDataset,
+        TrainLoader,
+    )
+    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+    from hover_net_tpu_torch.parallel import train_parallel as tp
+
+    loader = TrainLoader(PatchDataset([patch_dir]), batch_size=4,
+                         input_shape=(256, 256), mask_shape=(164, 164),
+                         mode="valid", with_type=True, num_workers=0)
+    batch = {k: torch.from_numpy(v) for k, v in next(iter(loader)).items()}
+    start = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5, width=8),
+                     generator=torch.Generator().manual_seed(4))
+
+    def terms(device, body):
+        net = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5, width=8,
+                                      dtype=body))
+        net.load_state_dict(start.state_dict())
+        tx, schedule = tp.make_optimizer()
+        state = tp.init_train_state(net, tx, device)
+        step = tp.make_train_step(net, schedule, freeze_encoder=False)
+        _, (out, _) = step(state, {k: v.to(device) for k, v in batch.items()})
+        return {k: float(v) for k, v in out.items()}
+
+    rel = {}
+    for case, body, tf32 in (("float64 body", torch.float64, False),
+                             ("float32, TF32 off", torch.float32, False),
+                             ("float32, TF32 on", torch.float32, True)):
+        want = terms("cpu", body)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+            got = terms("cuda", body)
+        rel[case] = {k: abs(got[k] - w) / abs(w) for k, w in want.items()}
+    return rel
+
+
+KERNEL_GROUPS = (  # first match wins, on the kernel's name
+    ("batch norm", r"batch_norm|batchnorm|welford|bn_"),
+    ("convolution", r"conv|cudnn|xmma|gemm|fprop|dgrad|wgrad|cutlass"),
+    ("optimizer", r"multi_tensor|adam"),
+    ("copy / memset", r"memcpy|memset"),
+)
+
+
+def train_step_split(tar, patch_dir):
+    """Where a width-64 train step's time goes, in each phase's setting
+    (frozen encoder at batch 16; everything at batch 4) from phase 2's
+    weights on one real batch: the host-clock ms of a step ending in a
+    sync (median of 5 after 3 warm-ups), also with TF32 off, and, under
+    torch.profiler over 5 more steps, the device time by kernel group;
+    the device's idle share is 1 - busy / step. Only printed."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hover_net_tpu_torch.data.train_pipeline import (
+        PatchDataset,
+        TrainLoader,
+    )
+    from hover_net_tpu_torch.models.checkpoints import load_torch_tar
+    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+    from hover_net_tpu_torch.parallel import train_parallel as tp
+
+    loader = TrainLoader(PatchDataset([patch_dir]), batch_size=16,
+                         input_shape=(256, 256), mask_shape=(164, 164),
+                         mode="valid", with_type=True, num_workers=0)
+    host = next(iter(loader))
+    for freeze, n in ((True, 16), (False, 4)):
+        net = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5,
+                                      width=TRAIN_WIDTH))
+        net.load_state_dict(load_torch_tar(tar))
+        tx, schedule = tp.make_optimizer()
+        state = tp.init_train_state(net, tx, "cuda")
+        step = tp.make_train_step(net, schedule, freeze_encoder=freeze)
+        batch = {k: torch.from_numpy(v[:n]).cuda() for k, v in host.items()}
+
+        def run():
+            _, (terms, _) = step(state, batch)
+            return float(terms["overall_loss"])  # the manager's sync
+
+        def step_ms():
+            for _ in range(3):
+                run()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                run()
+                times.append(time.perf_counter() - t0)
+            return statistics.median(times) * 1e3
+
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            fp32_ms = step_ms()
+        tf32_ms = step_ms()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                run()
+            torch.cuda.synchronize()
+        groups, kernels = {}, {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.name.lower()
+            group = next((g for g, pat in KERNEL_GROUPS
+                          if re.search(pat, name)), "elementwise, other")
+            groups[group] = groups.get(group, 0.0) + e.device_time / 5e3
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time / 5e3
+        busy = sum(groups.values())
+        head = (f"train step split, freeze_encoder={freeze}, batch {n}: "
+                f"{tf32_ms:.3f} ms a step (host clock; {fp32_ms:.3f} ms "
+                "with TF32 off)")
+        if not busy:
+            log(head + "; device time not measured (torch.profiler saw no "
+                "device events)")
+            continue
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+        log(head + f", device busy {busy:.3f} ms (idle "
+            f"{100 * max(0.0, 1 - busy / tf32_ms):.1f} %; torch.profiler): "
+            + ", ".join(
+                f"{g} {ms:.3f}" for g, ms in sorted(
+                    groups.items(), key=lambda kv: -kv[1]))
+            + "; top kernels: " + ", ".join(
+                f"{k[:60]} {ms:.3f}" for k, ms in top))
+        del net, state, step, batch
+        torch.cuda.empty_cache()
+
+
+def check_training(work, device="cuda"):
+    """Phase 11: training as a user runs it, at full width: a synthetic
+    CoNSeP dataset, patches from cli/extract_patches (540 / 164), the
+    two default phases (frozen encoder at batch 16, then all at batch 4)
+    for one epoch each through cli/run_train; checks the freeze cut, the
+    checkpoints and stats, loads the trained `.tar` into the tile
+    manager, and holds one width-8 step on the card against the CPU."""
+    import torch
+
+    from hover_net_tpu_torch.cli import extract_patches, run_train
+    from hover_net_tpu_torch.config import default_phases
+    from hover_net_tpu_torch.infer.tile import TileInferManager
+    from hover_net_tpu_torch.models.checkpoints import load_torch_tar
+    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+
+    root = os.path.join(work, "train")
+    t0 = time.perf_counter()
+    patch_dirs = {}
+    for split, n_img, seed in (("train", TRAIN_IMAGES, 200),
+                               ("valid", 1, 300)):
+        src = os.path.join(root, "consep", split)
+        write_consep(src, n_img, seed)
+        patch_dirs[split] = os.path.join(root, "patches", split)
+        extract_patches.main([
+            "--dataset", "consep", "--with_type",
+            "--img_dir", os.path.join(src, "Images"),
+            "--ann_dir", os.path.join(src, "Labels"),
+            "--out_dir", patch_dirs[split],
+            "--win_size", "540", "--step_size", "164"])
+    n_patches = {k: len(os.listdir(v)) for k, v in patch_dirs.items()}
+    log(f"training data: {n_patches} patches of 540^2 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    cfg_path = os.path.join(root, "config.py")
+    with open(cfg_path, "w") as f:
+        f.write(
+            "from hover_net_tpu_torch.config import TrainConfig\n"
+            f"config = TrainConfig(model_mode='fast', nr_types=5, "
+            f"width={TRAIN_WIDTH}, log_dir={os.path.join(root, 'logs')!r}, "
+            f"train_dir_list=[{patch_dirs['train']!r}], "
+            f"valid_dir_list=[{patch_dirs['valid']!r}])\n"
+            "for phase in config.phases:\n"
+            "    phase.nr_epochs = 1\n")
+    phases = default_phases("fast")
+    torch.cuda.reset_peak_memory_stats()
+    log(f"$ python -m hover_net_tpu_torch.cli.run_train --config {cfg_path}"
+        f" (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+    t0 = time.perf_counter()
+    infos = run_train.main(["--config", cfg_path, "--device", device])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"training: 2 phases in {wall:.1f} s wall, peak device memory "
+        f"{peak:.2f} GiB")
+    for idx, (info, phase) in enumerate(zip(infos, phases)):
+        batch = phase.batch_size["train"]
+        if len(info.losses) < 8 or not np.all(np.isfinite(info.losses)):
+            raise AssertionError(f"phase {idx}: {len(info.losses)} steps, "
+                                 f"losses {info.losses}")
+        ms, rate, share = step_stats(info, batch)
+        log(f"train phase {idx} (freeze_encoder={phase.freeze_encoder}, "
+            f"batch {batch}): {len(info.losses)} steps, {ms:.3f} ms per "
+            f"step (median after 2), {rate:.1f} patches/s, loader wait "
+            f"{100 * share:.1f} % of the step; overall_loss "
+            f"{info.losses[0]:.4f} -> {info.losses[-1]:.4f}")
+
+    logs = os.path.join(root, "logs")
+    tars = [os.path.join(logs, f"{i:02d}", "net_epoch=1.tar")
+            for i in range(2)]
+    for i, tar in enumerate(tars):
+        with open(os.path.join(logs, f"{i:02d}", "stats.json")) as f:
+            stats = json.load(f)
+        if not os.path.exists(tar) or "valid-np_dice" not in stats["1"]:
+            raise AssertionError(f"phase {i}: no checkpoint or no stats")
+    start = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5,
+                                    width=TRAIN_WIDTH),
+                     generator=torch.Generator().manual_seed(10)
+                     ).state_dict()
+    p0, p1 = load_torch_tar(tars[0]), load_torch_tar(tars[1])
+    params = [k for k, _ in HoVerNet(HoVerNetConfig(
+        mode="fast", nr_types=5, width=8)).named_parameters()]
+    frozen = [k for k in params
+              if k.startswith(("d1.", "d2.", "d3.", "d0.units."))]
+    stats_d13 = [k for k in p0 if k.startswith(("d1.", "d2.", "d3."))
+                 and k.endswith(("running_mean", "running_var"))]
+    bad = ([k for k in frozen if not torch.equal(p0[k], start[k])]
+           + [k for k in params if k not in frozen
+              and torch.equal(p0[k], start[k])]
+           + [k for k in stats_d13 if torch.equal(p0[k], start[k])]
+           + [k for k in params if torch.equal(p1[k], p0[k])])
+    log(f"freeze cut: {len(frozen)} frozen parameters unchanged, "
+        f"{len(params) - len(frozen)} trained, {len(stats_d13)} d1..d3 BN "
+        f"statistics moved in phase 1; all {len(params)} moved in phase 2; "
+        f"{len(bad)} off")
+    if bad:
+        raise AssertionError(f"the freeze cut is off at {bad[:5]}")
+
+    img_dir = os.path.join(root, "tile_in")
+    os.makedirs(img_dir)
+    shutil.copy(os.path.join(root, "consep", "valid", "Images", "img0.png"),
+                img_dir)
+    mgr = TileInferManager(model_path=tars[1], mode="fast", nr_types=5,
+                           width=TRAIN_WIDTH, device=device,
+                           type_info_path=os.path.join(ROOT,
+                                                       "type_info.json"))
+    out = os.path.join(root, "tile_out")
+    if mgr.process_file_list(img_dir, out, save_format="json") != 1:
+        raise AssertionError("the trained checkpoint wrote no json")
+    with open(os.path.join(out, "json", "img0.json")) as f:
+        n_nuc = len(json.load(f)["nuc"])
+    log(f"trained .tar -> TileInferManager: img0.json with {n_nuc} nuclei")
+
+    train_step_split(tars[1], patch_dirs["valid"])
+    rel = train_cpu_vs_cuda(patch_dirs["valid"])
+    for case, tol in (("float64 body", 1e-5), ("float32, TF32 off", 1e-3),
+                      ("float32, TF32 on", 2e-2)):
+        # in float32 the random net's gradient is chaotic (grad_norm moves
+        # by ~1e-2 between any two float32 runs); the float64 body holds it
+        checked = {k: v for k, v in rel[case].items()
+                   if k != "grad_norm" or case == "float64 body"}
+        worst = max(checked.items(), key=lambda kv: kv[1])
+        log(f"w8 step cuda vs cpu, {case}: largest relative difference "
+            f"{worst[1]:.2e} ({worst[0]}; bound {tol:g}); "
+            + ", ".join(f"{k} {v:.1e}" for k, v in rel[case].items()))
+        if worst[1] > tol:
+            raise AssertionError("the card's train step disagrees with "
+                                 "the CPU's")
+    del mgr
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -1071,6 +1397,10 @@ def main():
     canvas = canvas_inputs(SRC_HW, dev)
     k2 = check_k2(dev, canvas)
     k4 = check_k4(canvas)
+    del canvas
+    torch.cuda.empty_cache()
+
+    check_training(work)
 
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda",

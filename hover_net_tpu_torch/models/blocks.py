@@ -9,7 +9,14 @@ Geometry matches the JAX package exactly:
 - XLA/TF 'SAME' padding splits the total pad with the smaller half first,
   so a stride-2 3x3 conv on an even input pads 0 top/left and 1
   bottom/right (`same_pad`), not torch's symmetric `padding=1`;
-- BatchNorm eps 1e-5 (torch's default);
+- BatchNorm eps 1e-5 (torch's default), momentum 0.1 (flax 0.9); in
+  train mode the running variance takes the *biased* batch variance, as
+  flax does, where `nn.BatchNorm2d` would take the unbiased one
+  (`BatchNorm2d` below);
+- the encoder's freeze cut (`ResidualBlock(..., freeze_units=True)`)
+  detaches each unit tower and leaves the shortcut conv and the closing
+  BN live, as the JAX package's `stop_gradient` and the reference's
+  `set_grad_enabled(False)` (net_utils.py:256-263) do;
 - the dense concat center-crops the running map with
   utils/crops.crop_to_shape;
 - the grouped decoder conv is a native `groups=4` conv.
@@ -17,6 +24,7 @@ Geometry matches the JAX package exactly:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -41,8 +49,36 @@ def same_pad(x: torch.Tensor, ksize: int, stride: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=BN_EPS)
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train-mode update of `running_var` folds in
+    the biased batch variance, as flax's BatchNorm does
+    (hover_net_tpu/models/blocks.py), instead of torch's unbiased one.
+
+    The normalisation is torch's own (biased batch variance in both).
+    torch updates a copy of the running variance to
+    (1 - m) rv + m * var * n / (n - 1), over the n = N*H*W elements of a
+    channel; the buffer takes (1 - m) rv + m * var from it, on the
+    C-element vector only. The copy keeps the buffer out of autograd's
+    saved tensors."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        keep = 1.0 - self.momentum
+        rv = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, rv, self.weight, self.bias,
+                           True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            unbiased = rv.sub(self.running_var, alpha=keep)  # m * var_u
+            self.running_var.mul_(keep).add_(unbiased, alpha=(n - 1) / n)
+        return out
+
+
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=BN_EPS)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
@@ -112,7 +148,9 @@ class _BNRelu(nn.Module):
 class ResidualBlock(nn.Module):
     """Preact-ResNet group of `count` bottleneck units with the rolling
     shortcut (each unit's sum is the next unit's shortcut) and a 1x1
-    strided conv shortcut, closed by BN+ReLU."""
+    strided conv shortcut, closed by BN+ReLU. `freeze_units` runs the
+    unit towers without autograd: their parameters get no gradient, and
+    the gradient reaches the block's input only through the shortcut."""
 
     def __init__(self, cin: int, ch: Sequence[int], count: int,
                  stride: int = 1, ksize: int = 3):
@@ -126,11 +164,13 @@ class ResidualBlock(nn.Module):
                          if cin != ch[-1] or stride != 1 else None)
         self.blk_bna = _BNRelu(ch[-1])
 
-    def forward(self, x):
+    def forward(self, x, freeze_units: bool = False):
         shortcut = x if self.shortcut is None else self.shortcut(x)
         prev = x
         for unit in self.units:
-            prev = unit(prev) + shortcut
+            with torch.no_grad() if freeze_units else contextlib.nullcontext():
+                new = unit(prev)
+            prev = new + shortcut
             shortcut = prev
         return self.blk_bna(prev)
 

@@ -10,7 +10,10 @@ net_desc.py):
   blocks (ksize 5 original, 3 fast), u1 'SAME', u0 BN-ReLU + 1x1 head;
 - skips `upsample2x(d[i+1]) + crop(d[i])` with the crops computed from the
   geometry;
-- input scaled by 1/255.
+- input scaled by 1/255;
+- `forward(imgs, freeze_encoder=True)` is the first training phase's
+  cut: d0's unit towers and all of d1..d3 get no gradient, while conv0,
+  d0's shortcut and closing BN, `conv_bot` and the decoders learn.
 
 `cfg.dtype` is the compute dtype of the body. The heads (`u0.conv`) stay
 float32, as in the JAX package.
@@ -18,6 +21,7 @@ float32, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple
@@ -171,14 +175,20 @@ class HoVerNet(nn.Module):
                 if m.bias is not None:
                     m.bias.zero_()
 
-    def forward(self, imgs: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, imgs: torch.Tensor, freeze_encoder: bool = False
+                ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         x = imgs.to(cfg.dtype) / 255.0
         x = self.conv0(x)
-        d0 = self.d0(x)
-        d1 = self.d1(d0)
-        d2 = self.d2(d1)
-        d3 = self.conv_bot(self.d3(d2))
+        d0 = self.d0(x, freeze_units=freeze_encoder)
+        # the freeze cut of the reference (net_desc.py:108-111): d1..d3
+        # run without autograd, so neither their parameters nor d0 (through
+        # them) get a gradient; their BN running stats still update
+        with torch.no_grad() if freeze_encoder else contextlib.nullcontext():
+            d1 = self.d1(d0)
+            d2 = self.d2(d1)
+            d3 = self.d3(d2)
+        d3 = self.conv_bot(d3)
 
         k = cfg.ksize
         td1 = (2 * (d2.shape[2] - 9 * (k - 1)), 2 * (d2.shape[3] - 9 * (k - 1)))

@@ -1,9 +1,9 @@
 """Instance horizontal/vertical distance maps (the HV training target).
 
-The port's copy of `gen_instance_hv_map` and its helper
+The port's copy of `gen_targets`, `gen_instance_hv_map` and its helper
 `fix_mirror_padding` from hover_net_tpu/ops/targets.py (same names, same
 behaviour). The stage probe (cli/probe_pp_stages.py) builds its synthetic
-prediction map with it; training targets need it too. The fused native
+prediction map with it, and the training loader its targets. The fused native
 pass comes from the port's own library (ops/instance_table.py); the
 NumPy formulation below is its compiler-free fallback.
 """
@@ -182,3 +182,15 @@ def gen_instance_hv_map(ann, crop_shape):
     y_map[ys[keep], xs[keep]] = y_off[keep]
     x_map[ys[keep], xs[keep]] = x_off[keep]
     return np.dstack([x_map, y_map])
+
+
+def gen_targets(ann, crop_shape, **kwargs):
+    """{np_map, hv_map} center-cropped to crop_shape
+    (reference targets.py:100-114)."""
+    hv_map = gen_instance_hv_map(ann, crop_shape)
+    np_map = np.asarray(ann).copy()
+    np_map[np_map > 0] = 1
+    return {
+        "hv_map": cropping_center(hv_map, crop_shape),
+        "np_map": cropping_center(np_map, crop_shape),
+    }

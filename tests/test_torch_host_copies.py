@@ -264,3 +264,314 @@ def test_qupath_and_overlay(tmp_path):
     assert_same(overlays[0], overlays[1])
     assert_same(overlays[2], overlays[3])
     assert not np.array_equal(overlays[0], img)
+
+
+# --------------------------------------------------------------- training
+
+from hover_net_tpu import config as j_config  # noqa: E402
+from hover_net_tpu.cli import extract_patches as j_extract  # noqa: E402
+from hover_net_tpu.data import augs as j_augs  # noqa: E402
+from hover_net_tpu.data import datasets as j_datasets  # noqa: E402
+from hover_net_tpu.data import patch_extract as j_patch  # noqa: E402
+from hover_net_tpu.data import train_pipeline as j_pipe  # noqa: E402
+from hover_net_tpu.train import callbacks as j_cb  # noqa: E402
+from hover_net_tpu.train import engine as j_engine  # noqa: E402
+from hover_net_tpu.train import validation as j_valid  # noqa: E402
+from hover_net_tpu.utils import misc as j_misc  # noqa: E402
+from hover_net_tpu_torch import config as t_config  # noqa: E402
+from hover_net_tpu_torch.cli import extract_patches as t_extract  # noqa: E402
+from hover_net_tpu_torch.data import augs as t_augs  # noqa: E402
+from hover_net_tpu_torch.data import datasets as t_datasets  # noqa: E402
+from hover_net_tpu_torch.data import patch_extract as t_patch  # noqa: E402
+from hover_net_tpu_torch.data import train_pipeline as t_pipe  # noqa: E402
+from hover_net_tpu_torch.train import callbacks as t_cb  # noqa: E402
+from hover_net_tpu_torch.train import engine as t_engine  # noqa: E402
+from hover_net_tpu_torch.train import validation as t_valid  # noqa: E402
+from hover_net_tpu_torch.utils import misc as t_misc  # noqa: E402
+
+
+def nuclei_patch(size=140, seed=0, typed=True):
+    """[size, size, 3 + 1 (+1)] int32 patch: RGB, instances (, types)."""
+    rng = np.random.default_rng(seed)
+    inst = blobs((size, size), 10, seed=seed)
+    img = rng.integers(0, 256, (size, size, 3))
+    chans = [img, inst[..., None]]
+    if typed:
+        chans.append(np.where(inst > 0, inst % 4 + 1, 0)[..., None])
+    return np.concatenate(chans, -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("crop", [(80, 90), (40, 36), (4, 4)])
+def test_gen_targets(crop):
+    inst = blobs((80, 90), 12, seed=12)
+    assert_same(t_targets.gen_targets(inst, crop),
+                j_targets.gen_targets(inst, crop), str(crop))
+
+
+@pytest.mark.parametrize("vmin,vmax", [(0, 1), (-1, 1), (0, 5)])
+def test_colorize_jet_table_is_matplotlibs(vmin, vmax):
+    """The port's explicit jet table against matplotlib's colormap (the
+    JAX original calls it), with NaN, out-of-range and integer maps."""
+    rng = np.random.default_rng(13)
+    maps = [rng.uniform(-2, 6, (40, 50)).astype(np.float32),
+            np.linspace(-1.5, 5.5, 30001).reshape(1, -1),
+            rng.integers(0, 6, (30, 30)),
+            np.array([[np.nan, 0.5], [1.0, 0.0]], np.float32)]
+    for i, m in enumerate(maps):
+        assert_same(t_viz.colorize(m, vmin, vmax),
+                    j_viz.colorize(m, vmin, vmax), str(i))
+
+
+@pytest.mark.parametrize("typed", [False, True])
+def test_viz_train_panel_and_validation(typed):
+    rng = np.random.default_rng(14)
+    n, nr_types = 3, 5 if typed else None
+    raw = {"imgs": rng.integers(0, 256, (n, 12, 12, 3)).astype(np.float32),
+           "true_np": rng.integers(0, 2, (n, 8, 8)),
+           "prob_np": rng.uniform(0, 1, (n, 8, 8)).astype(np.float32),
+           "true_hv": rng.uniform(-1, 1, (n, 8, 8, 2)).astype(np.float32),
+           "pred_hv": rng.uniform(-1, 1, (n, 8, 8, 2)).astype(np.float32)}
+    if typed:
+        raw["true_tp"] = rng.integers(0, 5, (n, 8, 8))
+        raw["pred_tp"] = rng.integers(0, 5, (n, 8, 8)).astype(np.float32)
+    outs = []
+    for mod in (t_valid, j_valid):
+        np.random.seed(15)  # the panel's sample draw
+        outs.append(mod.proc_valid_step_output(raw, nr_types, viz_samples=2))
+    assert_same(outs[0], outs[1])
+    step_raw = {"img": raw["imgs"][:2],
+                "np": (raw["true_np"][:2], raw["prob_np"][:2]),
+                "hv": (raw["true_hv"][:2], raw["pred_hv"][:2])}
+    if typed:
+        step_raw["tp"] = (raw["true_tp"][:2], raw["pred_tp"][:2])
+    assert_same(t_valid.viz_train_step_output(step_raw, nr_types),
+                j_valid.viz_train_step_output(step_raw, nr_types))
+
+
+def test_gen_figure():
+    import matplotlib
+
+    matplotlib.use("Agg")
+    imgs = [np.eye(4) * i for i in range(5)]
+    titles = [f"t{i}" for i in range(5)]
+    figs = [mod.gen_figure(imgs, titles) for mod in (t_viz, j_viz)]
+    for fig in figs:
+        assert len(fig.axes) == 6
+    assert ([a.get_title() for a in figs[0].axes]
+            == [a.get_title() for a in figs[1].axes])
+
+
+@pytest.mark.parametrize("mode", ["train", "valid"])
+@pytest.mark.parametrize("typed", [False, True])
+def test_train_augmentor(mode, typed):
+    patch = nuclei_patch(seed=16, typed=typed)
+    img, ann = patch[..., :3].astype(np.uint8), patch[..., 3:]
+    outs = []
+    for mod in (t_augs, j_augs):
+        aug = mod.TrainAugmentor((96, 96), mode=mode, seed=17)
+        outs.append([aug(img, ann) for _ in range(4)])
+        aug.reseed(18)
+        outs[-1].append(aug(img, ann))
+    assert_same(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("name,typed", [("consep", True), ("consep", False),
+                                        ("kumar", False), ("cpm17", False)])
+def test_datasets_and_patch_extraction(name, typed, tmp_path):
+    """The loaders on a written .png/.mat pair, the patch extractor in
+    both modes, and the extraction CLI's files."""
+    import cv2
+    import scipy.io as sio
+
+    rng = np.random.default_rng(19)
+    img = rng.integers(0, 256, (300, 340, 3), np.uint8)
+    inst = blobs((300, 340), 20, seed=20)
+    for d in ("Images", "Labels"):
+        (tmp_path / d).mkdir()
+    cv2.imwrite(str(tmp_path / "Images" / "a.png"), img)
+    sio.savemat(str(tmp_path / "Labels" / "a.mat"),
+                {"inst_map": inst, "type_map": (inst % 8).astype(np.int32)})
+    loaded = []
+    for mod in (t_datasets, j_datasets):
+        parser = mod.get_dataset(name)
+        loaded.append((parser.load_img(str(tmp_path / "Images" / "a.png")),
+                       parser.load_ann(str(tmp_path / "Labels" / "a.mat"),
+                                       typed)))
+    assert_same(loaded[0], loaded[1])
+    for mode in ("mirror", "valid"):
+        assert_same(
+            t_patch.extract_patches(*loaded[0], (96, 96), (40, 40), mode),
+            j_patch.extract_patches(*loaded[1], (96, 96), (40, 40), mode),
+            mode)
+    for mod in (t_datasets, j_datasets):
+        with pytest.raises(ValueError):
+            mod.get_dataset("nope")
+
+    outs = {}
+    for label, mod in (("t", t_extract), ("j", j_extract)):
+        out = tmp_path / label
+        mod.main(["--dataset", name, "--img_dir", str(tmp_path / "Images"),
+                  "--ann_dir", str(tmp_path / "Labels"), "--out_dir",
+                  str(out), "--win_size", "120", "--step_size", "60"]
+                 + (["--with_type"] if typed else []))
+        outs[label] = {f: np.load(out / f) for f in sorted(os.listdir(out))}
+    assert len(outs["t"]) > 4
+    assert_same(outs["t"], outs["j"])
+
+
+@pytest.mark.parametrize("mode,typed", [("train", True), ("valid", True),
+                                        ("train", False)])
+def test_train_loader_epoch_matches(mode, typed, tmp_path):
+    """At num_workers=0 the port's loader gives the JAX loader's batches,
+    two epochs over, bit for bit."""
+    for i in range(5):
+        np.save(tmp_path / f"p{i}.npy", nuclei_patch(seed=30 + i, typed=typed))
+    epochs = []
+    for mod in (t_pipe, j_pipe):
+        loader = mod.TrainLoader(
+            mod.PatchDataset([str(tmp_path)]), batch_size=2,
+            input_shape=(96, 96), mask_shape=(40, 40), mode=mode,
+            with_type=typed, num_workers=0, seed=21)
+        assert loader.steps_per_epoch() == (2 if mode == "train" else 3)
+        epochs.append([list(loader) for _ in range(2)])
+        loader.close()
+    assert_same(epochs[0], epochs[1])
+    assert len(epochs[0][0]) == (2 if mode == "train" else 3)
+
+
+def test_prefetch_loader_on_the_cpu(tmp_path):
+    """The CPU path of the prefetcher hands out the loader's batches as
+    tensors, and times each wait."""
+    for i in range(4):
+        np.save(tmp_path / f"p{i}.npy", nuclei_patch(seed=40 + i))
+    def loader():  # a fresh one reseeds the augmentation
+        return t_pipe.TrainLoader(
+            t_pipe.PatchDataset([str(tmp_path)]), batch_size=2,
+            input_shape=(96, 96), mask_shape=(40, 40), with_type=True,
+            num_workers=0, seed=22)
+
+    want = list(loader())
+    pre = t_pipe.PrefetchLoader(loader(), "cpu")
+    got = list(pre)
+    assert len(pre) == 2 and len(pre.wait_s) == 2
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert isinstance(g[k], torch.Tensor)
+            np.testing.assert_array_equal(g[k].numpy(), w[k])
+
+
+class _StubInfo:
+    """The parts of RunInfo the callbacks read."""
+
+    def __init__(self, suffix):
+        self.suffix = suffix
+        self.saved = []
+        self.lr_schedule = lambda step: 1e-3 if step < 3 else 1e-4
+        self.train_state = type("S", (), {"step": 0})()
+        self.last_grad_norm = None
+
+    def save_checkpoint(self, path):
+        assert path.endswith(self.suffix)
+        self.saved.append(os.path.basename(path)[:-len(self.suffix)])
+
+
+def run_stub_training(engine, cb, suffix, log_dir):
+    """Two epochs of a stub train engine chaining a stub valid engine,
+    with every callback of the manager wired as it wires them."""
+    info = _StubInfo(suffix)
+    rng = np.random.default_rng(23)
+    train_batches = [{"x": float(v)} for v in rng.uniform(0, 1, 3)]
+    valid_batches = [{"x": float(v)} for v in rng.uniform(0, 1, 2)]
+
+    def train_step(batch, state):
+        info.train_state.step += 1
+        info.last_grad_norm = batch["x"] * 10
+        return {"EMA": {"loss": batch["x"], "aux": 2 * batch["x"]},
+                "raw": {"x": [batch["x"]]}}
+
+    def valid_step(batch, state):
+        return {"raw": {"x": [batch["x"]], "y": [1 - batch["x"]]}}
+
+    with open(os.path.join(log_dir, "stats.json"), "w") as f:
+        json.dump({}, f)
+    log_info = {"json_file": os.path.join(log_dir, "stats.json")}
+    train = engine.RunEngine("train", train_batches, train_step, info,
+                             log_info)
+    valid = engine.RunEngine("valid", valid_batches, valid_step, info,
+                             log_info)
+    trigger = cb.TriggerEngine("valid")
+    trigger.triggered_engine = valid
+    for c in (cb.ScalarMovingAverage(), cb.LoggingGradient()):
+        train.add_event_handler(engine.Events.STEP_COMPLETED, c)
+    for c in (cb.TrackLr(), cb.PeriodicSaver(),
+              cb.VisualizeOutput(lambda raw: np.asarray(raw["x"])),
+              cb.LoggingEpochOutput(), trigger, cb.ScheduleLr()):
+        train.add_event_handler(engine.Events.EPOCH_COMPLETED, c)
+    valid.add_event_handler(engine.Events.STEP_COMPLETED,
+                            cb.AccumulateRawOutput())
+    for c in (cb.ProcessAccumulatedRawOutput(lambda acc: {
+                  "scalar": {"np_dice": float(np.mean(acc["x"]))},
+                  "image": {}}),
+              cb.LoggingEpochOutput(),
+              cb.ConditionalSaver("valid-np_dice", comparator=">=")):
+        valid.add_event_handler(engine.Events.EPOCH_COMPLETED, c)
+    for e in (train, valid):
+        e.state.logging = True
+        e.state.log_dir = log_dir
+    state = train.run(2)
+    with open(log_info["json_file"]) as f:
+        stats = json.load(f)
+    return (stats, info.saved, state.curr_epoch, state.curr_global_step,
+            dict(state.tracked_step_output["scalar"]))
+
+
+def test_engine_and_callbacks_on_a_stub_step(tmp_path):
+    outs = []
+    for label, engine, cb, suffix in (("t", t_engine, t_cb, ".tar"),
+                                      ("j", j_engine, j_cb, ".msgpack")):
+        d = tmp_path / label
+        d.mkdir()
+        outs.append(run_stub_training(engine, cb, suffix, str(d)))
+    assert_same(outs[0], outs[1])
+    stats, saved = outs[0][0], outs[0][1]
+    assert set(stats) == {"1", "2"} and "valid-np_dice" in stats["2"]
+    assert saved[:2] == ["net_epoch=1", "net_best=[valid-np_dice]"]
+    assert [e.value for e in t_engine.Events] == \
+        [e.value for e in j_engine.Events]
+
+
+def test_config_and_misc(tmp_path):
+    import dataclasses
+
+    assert t_config.MODE_SHAPES == j_config.MODE_SHAPES
+    for kw in ({}, {"model_mode": "fast", "pretrained": "x.npz"},
+               {"type_classification": False, "shape_override": {
+                   "aug": (140, 140), "act": (96, 96), "out": (4, 4)}}):
+        t_cfg, j_cfg = t_config.TrainConfig(**kw), j_config.TrainConfig(**kw)
+        assert dataclasses.asdict(t_cfg) == dataclasses.asdict(j_cfg), kw
+        assert (t_cfg.act_shape, t_cfg.out_shape) == (j_cfg.act_shape,
+                                                      j_cfg.out_shape)
+    phases = t_config.default_phases("fast", "w.npz")
+    assert [dataclasses.asdict(p) for p in phases] == [
+        dataclasses.asdict(p) for p in j_config.default_phases("fast",
+                                                               "w.npz")]
+    assert [p.batch_size["train"] for p in phases] == [16, 4]
+
+    rng = np.random.default_rng(24)
+    m = rng.uniform(0, 3, (20, 20))
+    assert_same(t_misc.normalize_to_uint8(m), j_misc.normalize_to_uint8(m))
+    rgb = rng.integers(0, 256, (10, 12, 3), np.uint8)
+    stain = rng.uniform(0, 1, (3, 3))
+    assert_same(t_misc.color_deconvolution(rgb, stain),
+                j_misc.color_deconvolution(rgb, stain))
+    draws = []
+    for mod in (t_misc, j_misc):
+        assert mod.check_manual_seed(25) == 25
+        draws.append((random.random(), np.random.rand()))
+        d = tmp_path / mod.__name__
+        mod.mkdir(str(d / "x"))
+        (d / "x" / "f").write_text("")
+        mod.rm_n_mkdir(str(d / "x"))
+        assert os.listdir(d / "x") == []
+    assert draws[0] == draws[1]
