@@ -1195,7 +1195,10 @@ def train_step_split(tar, patch_dir):
             torch.cuda.synchronize()
         groups, kernels = {}, {}
         for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            # a user annotation (Adam's "Optimizer.step") spans kernels
+            # that are counted on their own
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(e, "is_user_annotation", False)):
                 continue
             name = e.name.lower()
             group = next((g for g, pat in KERNEL_GROUPS
