@@ -5,8 +5,12 @@ Counterpart of hover_net_tpu/data/train_pipeline.py. `PatchDataset` and
 `base_seed + pid * 7919` in each worker, the plain seed with
 `num_workers=0`, so that at `num_workers=0` the batches equal the JAX
 loader's bit for bit), except that the worker pool is started with the
-`spawn` method: the trainer forks it after CUDA and OpenCV have started
-threads, which `fork` does not survive safely. `PrefetchLoader` replaces
+`forkserver` method: the trainer forks it after CUDA and OpenCV have
+started threads, which `fork` does not survive safely. The server is a
+fresh interpreter that imports this module once; each pool's workers are
+forks of it, so the second and later pools (validation, the next phase)
+do not pay the interpreter's start and those imports again.
+`PrefetchLoader` replaces
 the JAX package's `jax.device_put` double buffer with pinned host
 batches copied `non_blocking` on a side CUDA stream, the compute stream
 waiting on an event per batch.
@@ -102,10 +106,12 @@ class TrainLoader:
                            with_type)
         self._pool = None
         if self.num_workers > 0:
+            ctx = multiprocessing.get_context("forkserver")
+            # read when the server starts, once per process
+            ctx.set_forkserver_preload([__name__])
             self._pool = ProcessPoolExecutor(
                 self.num_workers, initializer=_worker_init,
-                initargs=self._init_args + (seed,),
-                mp_context=multiprocessing.get_context("spawn"),
+                initargs=self._init_args + (seed,), mp_context=ctx,
             )
         else:
             _worker_init(*self._init_args, seed)

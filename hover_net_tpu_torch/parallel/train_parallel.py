@@ -29,6 +29,7 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..infer.base import resolve_device
 from ..models.hovernet import HoVerNet
 from ..ops.losses import hovernet_loss
 
@@ -58,10 +59,11 @@ def make_optimizer(lr: float = 1.0e-4, step_epochs: int = 25,
     return tx, schedule
 
 
-def init_train_state(model: HoVerNet, tx, device="cpu") -> TrainState:
+def init_train_state(model: HoVerNet, tx, device="cuda") -> TrainState:
     """Move `model` (initialised from its torch.Generator) to `device`
-    and give it a fresh optimizer."""
-    model.to(device)
+    (the card unless the CPU is asked for; a missing GPU raises) and give
+    it a fresh optimizer."""
+    model.to(resolve_device(device))
     return TrainState(model=model, optimizer=tx(model.parameters()), step=0)
 
 

@@ -44,7 +44,9 @@ class RunInfo:
     the phase's per-step record: `losses` (each step's overall_loss),
     `step_s` (each train step's host seconds, ending when its loss
     scalars reach the host) and `wait_s` (the wait for each batch, from
-    the prefetch loader)."""
+    the prefetch loader); and `run_s`, the host seconds of the phase's
+    whole run (its epochs with their validation, callbacks, checkpoints
+    and the workers' start)."""
 
     def __init__(self, model, tx, lr_schedule, train_state):
         self.model = model
@@ -55,6 +57,7 @@ class RunInfo:
         self.losses: List[float] = []
         self.step_s: List[float] = []
         self.wait_s: List[float] = []
+        self.run_s = 0.0
 
     def save_checkpoint(self, path):
         ckpt.save_train_tar(path, self.train_state.model,
@@ -284,9 +287,11 @@ class TrainManager:
         valid_engine.state.log_dir = save_dir
         train_engine.state.curr_epoch = start_epoch
 
+        t0 = time.perf_counter()
         try:
             train_engine.run(phase.nr_epochs - start_epoch)
         finally:
+            run_info.run_s = time.perf_counter() - t0
             run_info.wait_s = prefetch.wait_s
             train_loader.close()
             valid_loader.close()

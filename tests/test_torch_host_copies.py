@@ -439,6 +439,32 @@ def test_train_loader_epoch_matches(mode, typed, tmp_path):
     assert len(epochs[0][0]) == (2 if mode == "train" else 3)
 
 
+def test_worker_pool_gives_the_in_process_batches(tmp_path):
+    """The port's one departure from the copied loader: its workers are
+    forks of a `forkserver` that has imported the pipeline. In valid mode
+    (no random augmentation) two pools, one after the other as the
+    trainer starts them, give the batches of `num_workers=0`."""
+    for i in range(5):
+        np.save(tmp_path / f"p{i}.npy", nuclei_patch(seed=50 + i))
+
+    def epoch(workers):
+        loader = t_pipe.TrainLoader(
+            t_pipe.PatchDataset([str(tmp_path)]), batch_size=2,
+            input_shape=(96, 96), mask_shape=(40, 40), mode="valid",
+            with_type=True, num_workers=workers, seed=23)
+        try:
+            if workers:
+                assert (loader._pool._mp_context.get_start_method()
+                        == "forkserver")
+            return list(loader)
+        finally:
+            loader.close()
+
+    want = epoch(0)
+    for _ in range(2):
+        assert_same(epoch(2), want)
+
+
 def test_prefetch_loader_on_the_cpu(tmp_path):
     """The CPU path of the prefetcher hands out the loader's batches as
     tensors, and times each wait."""

@@ -19,15 +19,21 @@ of their tensor's scale against a float64 run
 allows). With the float64 body the two agree to ~4e-7, so the checks
 below see any difference in the graph, the freeze cut, the BN update or
 the optimizer:
-- loss terms after step 1: 1e-5 relative; `grad_norm`: 1e-4 relative;
-- each gradient: within 1e-4 of its tensor's largest JAX magnitude; a
-  frozen parameter has no gradient in the port and an all-zero one in JAX;
+- loss terms of each of the 3 steps: 1e-5 relative; `grad_norm`: 1e-4
+  relative (worst 1.8e-7 over the 3 steps and both freeze modes);
+- each gradient of step 1: within 1e-4 of its tensor's largest JAX
+  magnitude; a frozen parameter has no gradient in the port and an
+  all-zero one in JAX;
 - frozen parameters: bit-identical to their start after 3 steps;
 - BN running mean and var after 3 steps: within 1e-5 of the tensor's
   largest magnitude (the variance folded in biased, as flax does: the
   unbiased n / (n - 1) would be 3e-3 off at the heads' 32 elements);
-- parameters after 3 steps: within 2 * (sum of the step lrs) absolute
-  (Adam turns a noise-level gradient into +-lr per step).
+- parameters after 3 steps: within 0.1 * lr absolute. The worst gap is
+  0.017 * lr (one entry of `decoder.np.u3.conva.weight` whose gradient
+  is near Adam's eps); a skipped or sign-flipped update is lr or more.
+Step 1's Adam update is +-lr whatever the betas are, and 3 steps barely
+see them, so `test_optimizer_matches_optax` holds the optimizer alone to
+optax over 40 updates across the schedule's boundary.
 """
 
 import numpy as np
@@ -102,8 +108,8 @@ def keep_grads():
 
 def run_jax(variables, data, freeze, body=jnp.float32):
     """N_STEPS JAX train steps, the model body computing in `body` (the
-    heads and the loss stay float32). Returns ((terms, grads) of step 1,
-    final {params, batch_stats}), as numpy."""
+    heads and the loss stay float32). Returns ((terms of every step,
+    grads of step 1), final {params, batch_stats}), as numpy."""
     model = JaxHoVerNet(JaxConfig(mode="fast", nr_types=NR_TYPES,
                                   width=WIDTH, dtype=body))
     tx, _ = j_tp.make_optimizer(**SCHEDULE)
@@ -116,15 +122,14 @@ def run_jax(variables, data, freeze, body=jnp.float32):
             params=params, batch_stats=cast(variables["batch_stats"]),
             opt_state=tx.init(params), step=jnp.zeros((), jnp.int32))
         step = j_tp.make_train_step(model, tx, freeze_encoder=freeze)
-        first = None
+        all_terms, grads = [], None
         for batch in data:
             state, (terms, _) = step(state, batch)
-            if first is None:
-                first = ({k: float(v) for k, v in terms.items()},
-                         jax.tree_util.tree_map(np.asarray,
-                                                state.opt_state[0]))
+            all_terms.append({k: float(v) for k, v in terms.items()})
+            if grads is None:
+                grads = jax.tree_util.tree_map(np.asarray, state.opt_state[0])
         final = {"params": state.params, "batch_stats": state.batch_stats}
-        return first, jax.tree_util.tree_map(np.asarray, final)
+        return (all_terms, grads), jax.tree_util.tree_map(np.asarray, final)
 
 
 def port_model(variables, body=torch.float32):
@@ -136,22 +141,22 @@ def port_model(variables, body=torch.float32):
 
 
 def run_port(variables, data, freeze, body=torch.float32):
-    """The port's counterpart of `run_jax`: ((terms, grads) of step 1,
-    final state dict)."""
+    """The port's counterpart of `run_jax`: ((terms of every step, grads
+    of step 1), final state dict)."""
     net = port_model(variables, body)
     tx, schedule = t_tp.make_optimizer(**SCHEDULE)
     state = t_tp.init_train_state(net, tx, "cpu")
     step = t_tp.make_train_step(net, schedule, freeze_encoder=freeze)
-    first = None
+    all_terms, grads = [], None
     for batch in data:
         state, (terms, _) = step(state, {k: torch.from_numpy(v)
                                          for k, v in batch.items()})
-        if first is None:
+        all_terms.append({k: float(v) for k, v in terms.items()})
+        if grads is None:
             grads = {k: p.grad.clone() for k, p in net.named_parameters()
                      if p.grad is not None}
-            first = ({k: float(v) for k, v in terms.items()}, grads)
     assert state.step == N_STEPS
-    return first, net.state_dict()
+    return (all_terms, grads), net.state_dict()
 
 
 def flat(tree, prefix=()):
@@ -190,11 +195,13 @@ def test_train_step_matches_jax(setup, freeze):
     (t_terms, t_grads), t_final = run_port(variables, data, freeze,
                                            torch.float64)
 
-    # loss terms and grad_norm of step 1
-    assert t_terms.keys() == j_terms.keys()
-    for k, want in j_terms.items():
-        tol = 1e-4 if k == "grad_norm" else 1e-5
-        assert abs(t_terms[k] - want) <= tol * abs(want), (k, t_terms[k], want)
+    # loss terms and grad_norm of every step
+    assert len(t_terms) == len(j_terms) == N_STEPS
+    for i, (got, want) in enumerate(zip(t_terms, j_terms)):
+        assert got.keys() == want.keys()
+        for k, w in want.items():
+            tol = 1e-4 if k == "grad_norm" else 1e-5
+            assert abs(got[k] - w) <= tol * abs(w), (i, k, got[k], w)
 
     start = state_dict_from_jax(variables, CFG)
     j_grad_sd = state_dict_from_jax(
@@ -202,7 +209,6 @@ def test_train_step_matches_jax(setup, freeze):
     j_sd = state_dict_from_jax(j_final, CFG)
     frozen = check_frozen(freeze, t_grads, j_grad_sd, t_final, j_sd, start)
 
-    lr_sum = LR * 2 + LR * 0.1
     for key in param_keys():
         if key in frozen:
             continue
@@ -213,7 +219,7 @@ def test_train_step_matches_jax(setup, freeze):
         assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), key
         # the parameters after N_STEPS
         got, want = t_final[key].double().numpy(), j_sd[key].numpy()
-        assert np.abs(got - want).max() <= 2 * lr_sum, key
+        assert np.abs(got - want).max() <= 0.1 * LR, key
 
     # BN running stats after N_STEPS: moved, and equal to JAX's
     n_stats = 0
@@ -224,6 +230,43 @@ def test_train_step_matches_jax(setup, freeze):
             assert not np.array_equal(want, start[key].numpy()), key
             assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), key
     assert n_stats > 100
+
+
+def test_optimizer_matches_optax():
+    """`make_optimizer`'s Adam and schedule against the JAX package's optax
+    chain, alone: float64 parameters, 40 updates from seeded gradients
+    that span 1e-10..1e2 (so eps matters), the boundary at update 20.
+    Both compute the same float64 formula, so the bound is 1e-9 * lr;
+    beta1 0.8 or beta2 0.99 in place of 0.9 / 0.999, eps 1e-7, or an lr
+    decayed at the wrong update would each miss it by orders of
+    magnitude."""
+    sched = dict(lr=1e-3, step_epochs=4, steps_per_epoch=5, gamma=0.1)
+    rng = np.random.default_rng(0)
+    start = rng.normal(0, 1, (64,))
+    grads = (rng.normal(0, 1, (40, 64))
+             * 10.0 ** rng.uniform(-10, 2, (40, 64)))
+
+    j_tx, _ = j_tp.make_optimizer(**sched)
+    with jax.enable_x64(True):
+        params = jnp.asarray(start)
+        opt_state = j_tx.init(params)
+        for g in grads:
+            updates, opt_state = j_tx.update(jnp.asarray(g), opt_state,
+                                             params)
+            params = optax.apply_updates(params, updates)
+        want = np.asarray(params)
+
+    t_tx, schedule = t_tp.make_optimizer(**sched)
+    p = torch.nn.Parameter(torch.from_numpy(start.copy()))
+    opt = t_tx([p])
+    for step, g in enumerate(grads):
+        p.grad = torch.from_numpy(g)
+        for group in opt.param_groups:
+            group["lr"] = schedule(step)
+        opt.step()
+    got = p.detach().numpy()
+    assert np.abs(got - start).max() > 1e-3
+    assert np.abs(got - want).max() <= 1e-9 * sched["lr"]
 
 
 def test_grads_map_back_to_jax_paths(setup):

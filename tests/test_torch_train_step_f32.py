@@ -59,6 +59,7 @@ def test_float32_train_step_matches_jax(setup, freeze):
     variables, data = setup
     (j_terms, j_grads), j_final = run_jax(variables, data, freeze)
     (t_terms, t_grads), t_final = run_port(variables, data, freeze)
+    j_terms, t_terms = j_terms[0], t_terms[0]
 
     assert t_terms.keys() == j_terms.keys()
     for k, want in j_terms.items():
