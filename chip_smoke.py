@@ -86,7 +86,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phase's whole run, the peak device memory and the TF32 setting, and
    the phase's own seconds by part (cli/train_step_split splits a step
    by kernel group);
-12. prints the kernel table as one JSON line (K1's times at the WSI
+12. evaluation as a user runs it: phase 11's trained `.tar` through
+   cli/run_infer on four held-out 1000^2 CoNSeP-style images (fast,
+   width 64, bf16, --save_format all) three times: (a) the device path
+   with --profile_dir, (b) --host_post_proc, (c) HNT_FUSED_ENC=1. K1 ran
+   once per image in (a) and (c) and never in (b), K3 4 times per
+   forward batch in (c); the trace names K1's kernels; every json and
+   mat is written; per image AJI((b), (a)) >= 0.93, the JAX package's
+   floor for its device path against the host oracle;
+   cli/convert_format writes one tsv row per nucleus. Prints
+   cli/compute_stats of each run against the truth (types merged as
+   CoNSeP's loader merges them), the drift of (a) against (b) and of (c)
+   against (a) per image with mean and min (beside the JAX package's TPU
+   record) and of (a) and (c) against (d), the standard forward in
+   float32 (TF32 off: the bf16 noise floor of the checkpoint), the host
+   post-processing seconds per image, the trained model's summary
+   totals and the phase's own seconds by part;
+13. prints the kernel table as one JSON line (K1's times at the WSI
    window batch; each kernel's bound from its inputs and outputs at the
    timed shape), the card line, and last
    {"ok": true, "device": {...}}.
@@ -778,28 +794,12 @@ def run_wsi(mgr, dirs):
     return k3, k1
 
 
-def fast_aji(true, pred):
-    """Aggregated Jaccard index: each true instance is paired with the
-    predicted one of highest IoU; unpaired predictions join the union."""
-    t, p = true.ravel().astype(np.int64), pred.ravel().astype(np.int64)
-    nt, npr = int(t.max()) + 1, int(p.max()) + 1
-    t_size = np.bincount(t, minlength=nt)
-    p_size = np.bincount(p, minlength=npr)
-    both = (t > 0) & (p > 0)
-    key, inter = np.unique(t[both] * npr + p[both], return_counts=True)
-    ti, pj = key // npr, key % npr
-    union = t_size[ti] + p_size[pj] - inter
-    order = np.lexsort((-inter / union, ti))
-    best = order[np.r_[True, ti[order][1:] != ti[order][:-1]]]
-    paired = np.zeros(nt, bool)
-    paired[ti[best]] = True
-    used = np.zeros(npr, bool)
-    used[pj[best]] = True
-    used[0] = True
-    lone = (t_size > 0) & ~paired
-    lone[0] = False
-    total_u = union[best].sum() + t_size[lone].sum() + p_size[~used].sum()
-    return inter[best].sum() / total_u
+def aji_of(true, pred):
+    """Aggregated Jaccard index of two label maps with ids of any range
+    (metrics.stats.get_fast_aji wants contiguous ids: remap first)."""
+    from hover_net_tpu_torch.metrics.stats import get_fast_aji, remap_label
+
+    return get_fast_aji(remap_label(true), remap_label(pred))
 
 
 def wsi_real_nuclei(mgr, work):
@@ -907,7 +907,7 @@ def wsi_real_nuclei(mgr, work):
     whole = whole[0].cpu().numpy()
     n_whole = len(np.unique(whole)) - 1
     n_tiled = len(np.unique(map_d)) - 1
-    aji = fast_aji(whole, map_d)
+    aji = aji_of(whole, map_d)
     log(f"wsi stitched vs single-shot K1 at {SLIDE}^2: {n_tiled} vs "
         f"{n_whole} instances, AJI {aji:.5f}")
     if abs(n_tiled - n_whole) > 0.01 * n_whole or aji <= 0.95 \
@@ -988,7 +988,7 @@ def check_k2(dev, canvas):
     whole, blocked = whole[0].cpu().numpy(), blocked[0].cpu().numpy()
     n_whole = len(np.unique(whole)) - 1
     n_blocked = len(np.unique(blocked)) - 1
-    aji = fast_aji(whole, blocked)
+    aji = aji_of(whole, blocked)
     log(f"K2 blocked (core 320, halo 96) at 800x700: {n_diff} labels differ "
         f"from its plain version; vs whole map {n_blocked} vs {n_whole} "
         f"instances, AJI {aji:.6f}; K2 launches {launches}")
@@ -1267,6 +1267,215 @@ def check_training(work, device="cuda"):
         f"cpu {now - t0:.1f}")
     del mgr
     torch.cuda.empty_cache()
+    return tars[1]
+
+
+# ---------------------------------------------------------- evaluation
+
+EVAL_IMAGES = 4     # held-out 1000^2 images (phase 11 used seeds 200-202, 300)
+EVAL_SEED = 400
+# the JAX package's record of its device path against the host oracle
+# (scripts/parity_drift_sweep_r5_tpu.csv: 50 trained-checkpoint tiles on a
+# TPU v5 lite), printed beside the port's: AJI mean, min
+TPU_DRIFT_RECORD = (0.981, 0.960)
+AJI_FLOOR = 0.93    # the JAX package's composed parity floor, device vs host
+
+
+def write_truth(root):
+    """EVAL_IMAGES held-out CoNSeP-style images (Images/*.png) and a truth
+    directory of `.mat` files with inst_map, inst_centroid and inst_type:
+    the raw 7 types merged to 4 as data/datasets.CoNSeP.load_ann merges
+    them, the centroids from ops/post_proc_host.extract_instance_info."""
+    import scipy.io as sio
+
+    from hover_net_tpu_torch.data.datasets import CoNSeP
+    from hover_net_tpu_torch.metrics.stats import remap_label
+    from hover_net_tpu_torch.ops.post_proc_host import extract_instance_info
+
+    src = os.path.join(root, "consep")
+    write_consep(src, EVAL_IMAGES, EVAL_SEED)
+    truth = os.path.join(root, "truth")
+    os.makedirs(truth)
+    for i in range(EVAL_IMAGES):
+        ann = CoNSeP().load_ann(os.path.join(src, "Labels", f"img{i}.mat"),
+                                with_type=True)
+        inst, info = extract_instance_info(remap_label(ann[..., 0]),
+                                           ann[..., 1], n_types=5)
+        sio.savemat(os.path.join(truth, f"img{i}.mat"), {
+            "inst_map": inst,
+            "inst_centroid": np.array([v["centroid"] for v in info.values()]),
+            "inst_type": np.array([[v["type"]] for v in info.values()])})
+    return os.path.join(src, "Images"), truth
+
+
+def drift(name, want, got, names, tpu_record=False):
+    """Per image AJI(want, got) and the change in nucleus count, printed
+    with their mean and min (and the JAX package's TPU record of the
+    same comparison); returns the AJIs."""
+    ajis, deltas = [], []
+    for n in names:
+        ajis.append(aji_of(want[n][1], got[n][1]))
+        deltas.append(got[n][0] - want[n][0])
+        log(f"{name} {n}: AJI {ajis[-1]:.5f}, nuclei {want[n][0]} -> "
+            f"{got[n][0]} ({deltas[-1]:+d})")
+    record = (f"; the JAX package's TPU record of its device path against "
+              f"the host oracle (TPU v5 lite, 50 tiles): AJI mean "
+              f"{TPU_DRIFT_RECORD[0]}, min {TPU_DRIFT_RECORD[1]}"
+              if tpu_record else "")
+    log(f"{name}: AJI mean {statistics.mean(ajis):.5f}, min {min(ajis):.5f};"
+        f" count change mean {statistics.mean(deltas):+.2f}, largest "
+        f"{max(deltas, key=abs):+d}{record}")
+    return ajis
+
+
+def check_evaluation(work, tar, device="cuda"):
+    """Phase 12: evaluation as a user runs it. Phase 11's trained `.tar`
+    through cli/run_infer three times on held-out images: (a) the device
+    path with --profile_dir, (b) --host_post_proc, (c) HNT_FUSED_ENC=1;
+    launch counts, the trace, the outputs, AJI(b, a) >= AJI_FLOOR per
+    image, cli/convert_format and cli/compute_stats against the truth.
+    (d), the manager in float32, gives the bf16 floor (c) is read
+    against."""
+    import glob
+
+    import scipy.io as sio
+    import torch
+
+    from hover_net_tpu_torch.cli import compute_stats, convert_format
+    from hover_net_tpu_torch.cli import run_infer
+    from hover_net_tpu_torch.data.tiling import prepare_tile_patching
+    from hover_net_tpu_torch.infer.tile import TileInferManager
+    from hover_net_tpu_torch.models.checkpoints import load_torch_tar
+    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+    from hover_net_tpu_torch.ops.fused_block_cuda import fused_block_apply
+    from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
+    from hover_net_tpu_torch.utils.summary import model_summary
+
+    root = os.path.join(work, "eval")
+    t_start = time.perf_counter()
+    img_dir, truth = write_truth(root)
+    names = [f"img{i}" for i in range(EVAL_IMAGES)]
+    data_s = time.perf_counter() - t_start
+
+    batch = 32  # the CLI's default --batch_size
+    k = int(np.prod(prepare_tile_patching((SRC_HW, SRC_HW), 256, 164)[2]))
+    batches = -(-k // batch) if 2 * batch < k else 1  # steps.forward_batches
+    prof = os.path.join(root, "profile")
+    runs = {"a": ["--profile_dir", prof], "b": ["--host_post_proc"],
+            "c": []}
+    out, secs, mgrs, k1, k3 = {}, {}, {}, {}, {}
+    for run, flags in runs.items():
+        out[run] = os.path.join(root, f"out_{run}")
+        argv = (["--model_path", tar, "--model_mode", "fast", "--width",
+                 str(TRAIN_WIDTH), "--nr_types", "5", "--type_info_path",
+                 os.path.join(ROOT, "type_info.json"), "--device", device,
+                 "--batch_size", str(batch)] + flags
+                + ["tile", "--input_dir", img_dir, "--output_dir", out[run],
+                   "--save_format", "all"])
+        if run == "c":
+            os.environ["HNT_FUSED_ENC"] = "1"
+        try:
+            proc_tail.launches = fused_block_apply.launches = 0
+            t0 = time.perf_counter()
+            mgrs[run] = run_infer.main(argv)
+            secs[run] = time.perf_counter() - t0
+            k1[run], k3[run] = proc_tail.launches, fused_block_apply.launches
+        finally:
+            os.environ.pop("HNT_FUSED_ENC", None)
+        log(f"eval run ({run}) {' '.join(flags) or '(HNT_FUSED_ENC=1)'}: "
+            f"{EVAL_IMAGES} images in {secs[run]:.3f} s, K1 launches "
+            f"{k1[run]}, K3 launches {k3[run]}")
+    want = {"a": (EVAL_IMAGES, 0), "b": (0, 0),
+            "c": (EVAL_IMAGES, 4 * batches * EVAL_IMAGES)}
+    if any((k1[r], k3[r]) != want[r] for r in runs):
+        raise AssertionError(f"launches (K1, K3) {k1} {k3}, want {want}")
+
+    traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--profile_dir wrote {traces}")
+    with open(traces[0]) as f:
+        trace = f.read()
+    k1_names = [n for n in ("energy_dist", "morph5", "ws_final")
+                if n in trace]
+    log(f"profile: {os.path.relpath(traces[0], ROOT)}, "
+        f"{len(trace) / 2**20:.1f} MiB, names K1's {', '.join(k1_names)}")
+    if not k1_names:
+        raise AssertionError("the --profile_dir trace does not name K1")
+
+    # the bf16 noise floor of this checkpoint, for reading (c): (d) the
+    # standard forward in float32 (TF32 off) through the same manager
+    out["d"] = os.path.join(root, "out_d")
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        t0 = time.perf_counter()
+        TileInferManager(
+            model_path=tar, mode="fast", nr_types=5, width=TRAIN_WIDTH,
+            dtype=torch.float32, device=device,
+            type_info_path=os.path.join(ROOT, "type_info.json"),
+        ).process_file_list(img_dir, out["d"], save_format="all")
+        secs["d"] = time.perf_counter() - t0
+
+    maps = {}
+    for run in out:
+        maps[run] = {}
+        for n in names:
+            with open(os.path.join(out[run], "json", f"{n}.json")) as f:
+                n_nuc = len(json.load(f)["nuc"])
+            inst = sio.loadmat(os.path.join(out[run], "mat", f"{n}.mat"))[
+                "inst_map"]
+            maps[run][n] = (n_nuc, inst)
+    host_s = [t["post_proc_ms"] / 1e3 for t in mgrs["b"].timings]
+    log("host post-processing (b), s per image (cv2/scipy and the Python "
+        "priority-flood watershed): " + ", ".join(f"{s:.3f}" for s in host_s))
+    ajis = drift("parity_drift_sweep (a) device vs (b) host oracle",
+                 maps["b"], maps["a"], names, tpu_record=True)
+    drift("fused_encoder_drift (c) K3 vs (a) standard forward", maps["a"],
+          maps["c"], names)
+    drift("bf16 floor (a) standard bf16 vs (d) standard float32", maps["d"],
+          maps["a"], names)
+    drift("(c) K3 bf16 vs (d) standard float32", maps["d"], maps["c"], names)
+    if min(ajis) < AJI_FLOOR or min(n for n, _ in maps["a"].values()) < 10:
+        raise AssertionError(f"device vs host oracle AJI {ajis} below "
+                             f"{AJI_FLOOR}, or too few nuclei")
+
+    tsv_dir = os.path.join(root, "qupath")
+    convert_format.main(["--json_dir", os.path.join(out["a"], "json"),
+                         "--output_dir", tsv_dir, "--nr_types", "5",
+                         "--type_info_path",
+                         os.path.join(ROOT, "type_info.json")])
+    rows = {}
+    for n in names:
+        with open(os.path.join(tsv_dir, f"{n}.tsv")) as f:
+            rows[n] = len(f.readlines()) - 1
+    log(f"convert_format: {len(os.listdir(tsv_dir))} tsv, rows {rows}")
+    if sorted(os.listdir(tsv_dir)) != [f"{n}.tsv" for n in names] or any(
+            rows[n] != maps["a"][n][0] for n in names):
+        raise AssertionError("convert_format wrote the wrong rows")
+
+    for run in out:
+        pred = os.path.join(out[run], "mat")
+        log(f"compute_stats ({run}) --mode instance: [DICE, AJI, DQ, SQ, "
+            "PQ, AJI+] =")
+        inst = compute_stats.main(["--mode", "instance", "--pred_dir", pred,
+                                   "--true_dir", truth])
+        log(f"compute_stats ({run}) --mode type: [F1_d, acc, F1 of types "
+            "1-4] =")
+        typ = compute_stats.main(["--mode", "type", "--pred_dir", pred,
+                                  "--true_dir", truth])
+        if not (np.all(np.isfinite(inst)) and np.all(np.isfinite(typ))):
+            raise AssertionError(f"run ({run}): metrics not finite")
+
+    net = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5,
+                                  width=TRAIN_WIDTH))
+    net.load_state_dict(load_torch_tar(tar))
+    log("model_summary of the trained model: " + "; ".join(
+        model_summary(net).splitlines()[-2:]))
+    now = time.perf_counter()
+    checks_s = now - t_start - data_s - sum(secs.values())
+    log(f"phase 12 in {now - t_start:.1f} s: data {data_s:.1f}, runs "
+        + ", ".join(f"({r}) {secs[r]:.1f}" for r in secs)
+        + f", checks and metrics {checks_s:.1f}")
+    del mgrs
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1316,7 +1525,7 @@ def main():
     del canvas
     torch.cuda.empty_cache()
 
-    check_training(work)
+    check_evaluation(work, check_training(work))
 
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda",

@@ -16,8 +16,11 @@ a JAX `.msgpack` with hover_net_tpu.models.checkpoints.save_torch_tar.
 
 With HNT_FUSED_ENC=1 in the environment, a fast-mode bf16 model whose
 4 * width is a multiple of 128 runs its encoder d0..d2 as the fused-block
-CUDA kernel on a GPU. `--host_post_proc`, `--profile_dir` and
-`--n_devices` above 1 are not ported yet and exit with an error.
+CUDA kernel on a GPU. `--host_post_proc` (tile) post-processes on the
+host with the oracle (ops/post_proc_host.process) instead of the device
+kernel; `--profile_dir DIR` writes a torch.profiler trace of the run
+(tile or wsi) under DIR. `--n_devices` above 1 is not ported yet and
+exits with an error.
 """
 
 from __future__ import annotations
@@ -47,8 +50,11 @@ def build_parser():
                    help="accepted for parity; post-processing runs on the "
                         "device")
     p.add_argument("--host_post_proc", action="store_true",
-                   help="not ported yet")
-    p.add_argument("--profile_dir", default=None, help="not ported yet")
+                   help="tile mode: post-process on the host with the "
+                        "cv2/scipy oracle instead of the device kernel")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the run here "
+                        "(open in TensorBoard or chrome://tracing)")
     p.add_argument("--n_devices", type=int, default=1,
                    help="only 1 is ported")
 
@@ -86,14 +92,13 @@ def build_parser():
 
 
 def main(argv=None):
+    """Runs the subcommand; returns its manager."""
+    from .. import runtime
+
     args = build_parser().parse_args(argv)
-    unported = [name for name, on in (
-        ("--host_post_proc", args.host_post_proc),
-        ("--profile_dir", args.profile_dir is not None),
-        ("--n_devices > 1", args.n_devices > 1)) if on]
-    if unported:
-        sys.exit(f"hover_net_tpu_torch: {', '.join(unported)}: not ported "
-                 "yet (use hover_net_tpu.cli.run_infer)")
+    if args.n_devices > 1:
+        sys.exit("hover_net_tpu_torch: --n_devices > 1: not ported yet (use "
+                 "hover_net_tpu.cli.run_infer)")
     logging.basicConfig(
         level=logging.INFO,
         format="|%(asctime)s.%(msecs)03d| [%(levelname)s] %(message)s",
@@ -104,26 +109,31 @@ def main(argv=None):
         nr_types=args.nr_types if args.nr_types > 0 else None,
         type_info_path=args.type_info_path, batch_size=args.batch_size,
         width=args.width, device=args.device)
-    if args.command == "tile":
-        from ..infer.tile import TileInferManager
+    with runtime.profile_trace(args.profile_dir):
+        if args.command == "tile":
+            from ..infer.tile import TileInferManager
 
-        mgr = TileInferManager(**common)
-        mgr.process_file_list(
-            args.input_dir, args.output_dir, draw_dot=args.draw_dot,
-            save_qupath=args.save_qupath, save_raw_map=args.save_raw_map,
-            save_format=args.save_format)
-        return
-    from ..infer.wsi import WSIInferManager
+            mgr = TileInferManager(device_post_proc=not args.host_post_proc,
+                                   **common)
+            mgr.process_file_list(
+                args.input_dir, args.output_dir, draw_dot=args.draw_dot,
+                save_qupath=args.save_qupath, save_raw_map=args.save_raw_map,
+                save_format=args.save_format)
+        else:
+            from ..infer.wsi import WSIInferManager
 
-    mgr = WSIInferManager(
-        chunk_shape=args.chunk_shape, tile_shape=args.tile_shape,
-        ambiguous_size=args.ambiguous_size, proc_mag=args.proc_mag,
-        cache_path=args.cache_path,
-        pred_map_dtype="float32" if args.pred_map_f32 else "float16",
-        hbm_pred_budget=int(args.hbm_pred_budget_gb * 2**30), **common)
-    mgr.process_wsi_list(
-        args.input_dir, args.output_dir, input_mask_dir=args.input_mask_dir,
-        save_thumb=args.save_thumb, save_mask=args.save_mask)
+            mgr = WSIInferManager(
+                chunk_shape=args.chunk_shape, tile_shape=args.tile_shape,
+                ambiguous_size=args.ambiguous_size, proc_mag=args.proc_mag,
+                cache_path=args.cache_path,
+                pred_map_dtype="float32" if args.pred_map_f32 else "float16",
+                hbm_pred_budget=int(args.hbm_pred_budget_gb * 2**30),
+                **common)
+            mgr.process_wsi_list(
+                args.input_dir, args.output_dir,
+                input_mask_dir=args.input_mask_dir,
+                save_thumb=args.save_thumb, save_mask=args.save_mask)
+    return mgr
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ import torch
 from ..models.checkpoints import load_torch_tar
 from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..ops.instance_table import emit_nuc_json
+from .steps import forward_batches
 
 
 def resolve_device(device) -> torch.device:
@@ -65,6 +66,16 @@ class InferManagerBase:
         self.nr_types = nr_types
         self.batch_size = batch_size
         self.type_info = load_type_info(type_info_path, nr_types)
+
+    @torch.no_grad()
+    def run_batches(self, patches: torch.Tensor) -> torch.Tensor:
+        """The forward over [K, H, W, 3] patches on the manager's device:
+        [K, h, w, C] head activations (steps.infer_output), in balanced
+        batches of at most `batch_size` (steps.forward_batches, the
+        batching of the tile pipeline, so both tile branches run the same
+        batches)."""
+        return forward_batches(self.model, patches.to(self.device),
+                               self.batch_size)
 
 
 def save_json(path, inst_info, mag=None):

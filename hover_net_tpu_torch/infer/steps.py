@@ -102,6 +102,34 @@ def tables_tail(full: torch.Tensor, inst_batch: torch.Tensor,
     return inst, n_labels, tp_map, tables
 
 
+def forward_batches(model: HoVerNet, patches: torch.Tensor,
+                    batch: int = 0) -> torch.Tensor:
+    """`infer_output` over [K, H, W, 3] patches. batch > 0 splits the
+    forward into balanced sub-batches of at most `batch` patches when K
+    is more than twice that (80 patches at batch 32: 27 + 27 + 26, not
+    32 + 32 + 16); otherwise one call takes all K."""
+    k = patches.shape[0]
+    if batch and 2 * batch < k:
+        nb = -(-k // batch)
+        eff = -(-k // nb)
+        return torch.cat([infer_output(model, patches[i:i + eff])
+                          for i in range(0, k, eff)])
+    return infer_output(model, patches)
+
+
+def assemble_grid(patch_out: torch.Tensor,
+                  grid: Tuple[int, int]) -> torch.Tensor:
+    """[R*C, h, w, ch] patch outputs of a row-major grid -> the
+    [R*h, C*w, ch] map (the reshape-stitch of infer/tile.py:111-131 in
+    the reference)."""
+    r, c = grid
+    k, h, w, ch = patch_out.shape
+    if k != r * c:
+        raise ValueError(f"{k} patch outputs for a {r}x{c} grid")
+    full = patch_out.reshape(r, c, h, w, ch).permute(0, 2, 1, 3, 4)
+    return full.reshape(r * h, c * w, ch)
+
+
 def make_tile_pipeline(model: HoVerNet, grid: Tuple[int, int],
                        batch: int = 0):
     """(padded_img [H, W, 3], coords [K, 2], src_hw) -> (full, inst [H, W]
@@ -115,21 +143,10 @@ def make_tile_pipeline(model: HoVerNet, grid: Tuple[int, int],
     stage (forward, energy, post_proc_tail, tables) in ms."""
     win = model.cfg.patch_input_shape
     nr_types = model.cfg.nr_types
-    r, c = grid
 
     def forward_stitch(padded_img, coords):
         patches = extract_patches(padded_img, coords, win)
-        k = patches.shape[0]
-        if batch and 2 * batch < k:
-            nb = -(-k // batch)
-            eff = -(-k // nb)
-            out = torch.cat([infer_output(model, patches[i:i + eff])
-                             for i in range(0, k, eff)])
-        else:
-            out = infer_output(model, patches)
-        h, w, ch = out.shape[1], out.shape[2], out.shape[3]
-        full = out.reshape(r, c, h, w, ch).permute(0, 2, 1, 3, 4)
-        return full.reshape(r * h, c * w, ch)
+        return assemble_grid(forward_batches(model, patches, batch), grid)
 
     marks = []
 

@@ -7,6 +7,12 @@ pixel for pixel; the device pipeline (infer/steps.make_tile_pipeline)
 returns the per-instance tables, and the host builds the json from them
 with the native contour tracer. Every map is post-processed whole, so
 the JAX package's seam guard has no counterpart here.
+
+`device_post_proc=False` (the CLI's `--host_post_proc`) selects the host
+branch: the forward runs on the manager's device, the stitched
+prediction map is pulled, and the host oracle
+(ops/post_proc_host.process) post-processes it. The branch runs only
+when the caller asks for it; it is never a fallback for the device path.
 """
 
 from __future__ import annotations
@@ -32,11 +38,12 @@ from ..ops.instance_table import apply_lut
 from ..ops.post_proc_host import (
     extract_instance_info,
     instance_info_from_tables,
+    process as host_process,
 )
 from ..utils.qupath import to_qupath
 from ..utils.viz import overlay_instances
 from . import base
-from .steps import make_tile_pipeline
+from .steps import assemble_grid, extract_patches, make_tile_pipeline
 
 logger = logging.getLogger("hover_net_tpu_torch")
 
@@ -50,15 +57,18 @@ def _rm_n_mkdir(path):
 class TileInferManager(base.InferManagerBase):
     """Tile-mode inference (patches 270/80 original, 256/164 fast).
 
-    `timings` collects one dict per image written: the device ms of each
-    pipeline stage (CUDA only), the host finalize ms, and `from_tables`,
-    whether the json came from the device tables through the native
-    contour tracer (False: the dense-map fallback ran)."""
+    `timings` collects one dict per image written: on the device branch
+    the device ms of each pipeline stage (CUDA only), the host finalize
+    ms, and `from_tables`, whether the json came from the device tables
+    through the native contour tracer (False: the dense-map fallback
+    ran); on the host branch (`device_post_proc=False`) the host
+    post-processing ms."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, device_post_proc: bool = True, **kwargs):
         super().__init__(*args, **kwargs)
         self.patch_input_shape = self.cfg.patch_input_shape
         self.patch_output_shape = self.cfg.patch_output_shape
+        self.device_post_proc = device_post_proc
         self._pipelines = {}
         self.timings = []
 
@@ -69,15 +79,22 @@ class TileInferManager(base.InferManagerBase):
                 self.model, grid, batch=self.batch_size)
         return self._pipelines[grid]
 
+    def _reflect_padded(self, img: np.ndarray):
+        """(reflect-padded image, patch top-left coords, grid) of the exact
+        patch grid over `img`."""
+        pads, coords, grid = prepare_tile_patching(
+            img.shape[:2], self.patch_input_shape, self.patch_output_shape)
+        padded = np.pad(img, ((pads[0], pads[1]), (pads[2], pads[3]), (0, 0)),
+                        mode="reflect")
+        return padded, coords, grid
+
     def predict_image_async(self, img: np.ndarray):
         """Run one RGB uint8 image through the device pipeline. Returns
         (full, inst, n_labels, tp, tables) tensors at canonical size and
         the device ms of each stage."""
         src_h, src_w = img.shape[:2]
         win, step = self.patch_input_shape, self.patch_output_shape
-        pads, coords, grid = prepare_tile_patching((src_h, src_w), win, step)
-        padded = np.pad(img, ((pads[0], pads[1]), (pads[2], pads[3]), (0, 0)),
-                        mode="reflect")
+        padded, coords, grid = self._reflect_padded(img)
         rows, cols = bucket_grid_dim(grid[0]), bucket_grid_dim(grid[1])
         if (rows, cols) != grid:
             # zero-extend the canvas to the canonical grid; the pipeline
@@ -145,9 +162,24 @@ class TileInferManager(base.InferManagerBase):
 
     def predict_image(self, img: np.ndarray):
         """RGB uint8 image -> (pred_map [H, W, C], inst_map int32,
-        inst_info dict)."""
-        out, _ = self.predict_image_async(img)
-        return self.finalize_prediction(img, out)
+        inst_info dict). On the host branch sets `self.last_post_proc_ms`,
+        the host post-processing time."""
+        if self.device_post_proc:
+            out, _ = self.predict_image_async(img)
+            return self.finalize_prediction(img, out)
+        src_h, src_w = img.shape[:2]
+        padded, coords, grid = self._reflect_padded(img)
+        patches = extract_patches(
+            torch.from_numpy(np.ascontiguousarray(padded)).to(self.device),
+            torch.from_numpy(coords.astype(np.int64)).to(self.device),
+            self.patch_input_shape)
+        full = assemble_grid(self.run_batches(patches), grid)
+        pred_map = full[:src_h, :src_w].cpu().numpy().astype(np.float32)
+        t0 = time.perf_counter()
+        inst_map, inst_info = host_process(
+            pred_map, nr_types=self.nr_types, return_centroids=True)
+        self.last_post_proc_ms = (time.perf_counter() - t0) * 1e3
+        return pred_map, inst_map.astype(np.int32), inst_info
 
     def _save_outputs(self, name, img, pred_map, inst_map, inst_info,
                       output_dir, draw_dot=False, save_qupath=False,
@@ -186,8 +218,9 @@ class TileInferManager(base.InferManagerBase):
         """save_format "all" writes mat/overlay/json[/qupath]; "json"
         writes json[/qupath] from the device tables alone. The host
         finalize and save of image k run on one worker thread while the
-        main thread runs image k+1 on the device. Returns the number of
-        images written."""
+        main thread runs image k+1 on the device; on the host branch each
+        image is predicted, post-processed and saved in turn on the main
+        thread. Returns the number of images written."""
         pattern = re.sub(r"([\[\]])", "[\\1]", f"{input_dir}/*")
         files = sorted(glob.glob(pattern))
         if not files:
@@ -233,6 +266,20 @@ class TileInferManager(base.InferManagerBase):
                     try:
                         img = cv2.cvtColor(cv2.imread(path),
                                            cv2.COLOR_BGR2RGB)
+                        if not self.device_post_proc:
+                            pred_map, inst_map, inst_info = \
+                                self.predict_image(img)
+                            self._save_outputs(name, img, pred_map, inst_map,
+                                               inst_info, output_dir,
+                                               draw_dot, save_qupath,
+                                               save_raw_map, save_format)
+                            self.timings.append(dict(
+                                name=name, n_nuclei=len(inst_info),
+                                post_proc_ms=self.last_post_proc_ms))
+                            logger.info("done %s (%d nuclei, %.2fs)", name,
+                                        len(inst_info),
+                                        time.perf_counter() - t0)
+                            continue
                         dev_out, stage_ms = self.predict_image_async(img)
                         futs.append(fin.submit(finalize_one, name, img,
                                                dev_out, stage_ms, t0))

@@ -2,8 +2,9 @@
 
 The port's copy of the functions it uses from hover_net_tpu/ops/cc_np.py
 (same names, same behaviour): the tissue mask of the WSI manager, the
-5x5 ellipse of the post-processing tail, and the small-object removal of
-the training targets.
+5x5 ellipse of the post-processing tail, the small-object removal of
+the training targets, and the fill-holes, opening and priority-flood
+watershed of the host post-processing oracle (ops/post_proc_host.py).
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ def remove_small_objects(arr, min_size: int = 64, connectivity: int = 1):
     too_small = component_sizes < min_size
     out[too_small[ccs]] = 0
     return out
+
+
+def binary_fill_holes(mask):
+    return ndimage.binary_fill_holes(mask)
 
 
 def remove_small_holes(mask, area_threshold: int, connectivity: int = 1):
@@ -78,8 +83,64 @@ def ellipse_structuring_element(h: int, w: int):
     return kernel
 
 
+def binary_opening(mask, selem):
+    """Opening with cv2.morphologyEx border semantics: erosion treats
+    outside-of-image as foreground (cv2 default borderValue=+inf),
+    dilation as background."""
+    er = ndimage.binary_erosion(mask, structure=selem, border_value=1)
+    return ndimage.binary_dilation(er, structure=selem, border_value=0)
+
+
 def binary_dilation_disk(mask, radius: int):
     """skimage.morphology.binary_dilation(mask, disk(radius)) equivalent."""
     yy, xx = np.mgrid[-radius : radius + 1, -radius : radius + 1]
     disk = (xx * xx + yy * yy) <= radius * radius
     return ndimage.binary_dilation(mask, structure=disk)
+
+
+def watershed(image, markers, mask=None, connectivity: int = 1):
+    """Marker-based watershed (priority flood), skimage-compatible.
+
+    Pixels are flooded in increasing `image` order starting from
+    `markers`; ties broken by insertion order (matching
+    skimage.segmentation.watershed's stable heap semantics closely
+    enough for instance-level parity).
+    """
+    import heapq
+
+    image = np.asarray(image)
+    output = np.array(markers, dtype=np.int32, copy=True)
+    if mask is not None:
+        valid = mask.astype(bool)
+    else:
+        valid = np.ones(image.shape, bool)
+    output[~valid] = 0
+
+    if connectivity == 1:
+        neigh = ((-1, 0), (1, 0), (0, -1), (0, 1))
+    else:
+        neigh = tuple(
+            (dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1) if (dy, dx) != (0, 0)
+        )
+
+    h, w = image.shape
+    heap = []
+    counter = 0
+    seeded = (output > 0) & valid
+    ys, xs = np.nonzero(seeded)
+    order = np.argsort(image[ys, xs], kind="stable")
+    for k in order:
+        y, x = int(ys[k]), int(xs[k])
+        heapq.heappush(heap, (image[y, x], counter, y, x))
+        counter += 1
+
+    while heap:
+        _, _, y, x = heapq.heappop(heap)
+        lab_v = output[y, x]
+        for dy, dx in neigh:
+            ny, nx = y + dy, x + dx
+            if 0 <= ny < h and 0 <= nx < w and valid[ny, nx] and output[ny, nx] == 0:
+                output[ny, nx] = lab_v
+                heapq.heappush(heap, (image[ny, nx], counter, ny, nx))
+                counter += 1
+    return output

@@ -1,11 +1,16 @@
-"""Host (NumPy/cv2) finalize: instance label map or device tables ->
-per-nucleus info dicts.
+"""Host (NumPy/cv2) post-processing: the oracle HV maps -> instance map,
+and the finalize: instance label map or device tables -> per-nucleus
+info dicts.
 
-The port's copy of the functions it uses from
-hover_net_tpu/ops/post_proc_host.py (same names, same behaviour):
-`extract_instance_info` from a label map, `instance_info_from_tables`
-from the device-computed tables, and their helpers. The native calls go
-to the port's own library (ops/instance_table.py).
+The port's copy of hover_net_tpu/ops/post_proc_host.py (same names,
+same behaviour): `proc_np_hv` and `process`, the host oracle,
+algorithmically the reference pipeline (models/hovernet/post_proc.py:
+26-90: threshold, Sobel-21 energy of the min-max-normalised HV maps,
+markers, priority-flood watershed from ops/cc_np.py), which the tile
+manager runs with `device_post_proc=False`; `extract_instance_info` from
+a label map, `instance_info_from_tables` from the device-computed
+tables, and their helpers. The native calls go to the port's own
+library (ops/instance_table.py).
 """
 
 from __future__ import annotations
@@ -13,12 +18,73 @@ from __future__ import annotations
 import cv2
 import numpy as np
 
+from ..metrics.stats import remap_label
+from .cc_np import (
+    binary_fill_holes,
+    binary_opening,
+    ellipse_structuring_element,
+    label as cc_label,
+    remove_small_objects,
+    watershed,
+)
 from .instance_table import (
     apply_lut,
     instance_table,
     trace_contours,
     trace_contours_coo,
 )
+
+
+def _minmax_norm(x):
+    """cv2.normalize(..., NORM_MINMAX, alpha=0, beta=1) equivalent."""
+    x = x.astype(np.float32)
+    lo, hi = float(x.min()), float(x.max())
+    if hi - lo < 1e-12:
+        return np.zeros_like(x, np.float32)
+    return (x - lo) / (hi - lo)
+
+
+def proc_np_hv(pred: np.ndarray) -> np.ndarray:
+    """NP prob + HV maps (H, W, 3) -> int32 instance map.
+
+    Channel order: 0 = nuclei probability, 1 = horizontal, 2 = vertical
+    (post_proc.py:26-90).
+    """
+    pred = np.array(pred, dtype=np.float32)
+    blb_raw = pred[..., 0]
+    h_dir_raw = pred[..., 1]
+    v_dir_raw = pred[..., 2]
+
+    blb = (blb_raw >= 0.5).astype(np.int32)
+    blb = cc_label(blb)[0]
+    blb = remove_small_objects(blb, min_size=10)
+    blb[blb > 0] = 1
+
+    h_dir = _minmax_norm(h_dir_raw)
+    v_dir = _minmax_norm(v_dir_raw)
+
+    sobelh = cv2.Sobel(h_dir, cv2.CV_64F, 1, 0, ksize=21)
+    sobelv = cv2.Sobel(v_dir, cv2.CV_64F, 0, 1, ksize=21)
+    sobelh = 1 - _minmax_norm(sobelh)
+    sobelv = 1 - _minmax_norm(sobelv)
+
+    overall = np.maximum(sobelh, sobelv)
+    overall = overall - (1 - blb)
+    overall[overall < 0] = 0
+
+    dist = (1.0 - overall) * blb
+    dist = -cv2.GaussianBlur(dist, (3, 3), 0)
+
+    overall = (overall >= 0.4).astype(np.int32)
+    marker = blb - overall
+    marker[marker < 0] = 0
+    marker = binary_fill_holes(marker).astype(np.uint8)
+    selem = ellipse_structuring_element(5, 5)
+    marker = binary_opening(marker, selem).astype(np.uint8)
+    marker = cc_label(marker)[0]
+    marker = remove_small_objects(marker, min_size=10)
+
+    return watershed(dist, markers=marker, mask=blb).astype(np.int32)
 
 
 def extract_instance_info(pred_inst, pred_type=None, n_types: int = 16):
@@ -221,3 +287,29 @@ def instance_info_from_tables(tables, n_labels: int, typed: bool):
         lut[keep] = np.arange(1, len(keep) + 1, dtype=np.int32)
         inst_info = {int(lut[k]): inst_info[k] for k in keep}
     return inst_info, lut
+
+
+def process(pred_map, nr_types=None, return_centroids=False):
+    """Full tile post-processing (post_proc.py:94-186).
+
+    pred_map: (H, W, C) with channels [tp?, np, hv_x, hv_y].
+    Returns (inst_map int32, inst_info_dict | None).
+    """
+    pred_type = None
+    if nr_types is not None:
+        pred_type = pred_map[..., 0].astype(np.int32)
+        pred_inst_in = pred_map[..., 1:]
+    else:
+        pred_inst_in = pred_map
+
+    pred_inst = proc_np_hv(np.squeeze(pred_inst_in))
+    # contiguous ids 1..N (the reference leaves gaps from removed small
+    # markers and warns "ID MAY NOT BE CONTIGUOUS", post_proc.py:184;
+    # we normalise — downstream consumers only rely on dict-key/map
+    # agreement)
+    pred_inst = remap_label(pred_inst)
+
+    inst_info = None
+    if return_centroids or nr_types is not None:
+        pred_inst, inst_info = extract_instance_info(pred_inst, pred_type)
+    return pred_inst, inst_info

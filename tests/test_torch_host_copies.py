@@ -137,7 +137,20 @@ CC_CASES = {
     "ellipse": lambda m, a: [m.ellipse_structuring_element(h, w)
                              for h, w in ((5, 5), (3, 7), (1, 1), (9, 4))],
     "binary_dilation_disk": lambda m, a: m.binary_dilation_disk(a > 0, 3),
+    "binary_fill_holes": lambda m, a: m.binary_fill_holes(a % 3 == 1),
+    "binary_opening": lambda m, a: m.binary_opening(
+        a > 0, m.ellipse_structuring_element(5, 5)),
+    "watershed_4": lambda m, a: m.watershed(
+        ws_energy(a.shape), np.where(a % 2 == 1, a, 0), mask=a > 0),
+    "watershed_8_nomask": lambda m, a: m.watershed(
+        ws_energy(a.shape), np.where(a % 4 == 1, a, 0), connectivity=2),
 }
+
+
+def ws_energy(shape):
+    """A float32 landscape with plateaus (ties in the flood order)."""
+    idx = np.arange(shape[0] * shape[1]).reshape(shape)
+    return np.round(np.sin(idx * 0.37) * 4).astype(np.float32)
 
 
 @pytest.mark.parametrize("name", sorted(CC_CASES))
@@ -147,6 +160,40 @@ def test_cc_np(name):
 
 
 # ------------------------------------------------ native library and host
+
+def oracle_pred(seed, typed):
+    """[160, 150, 3 (+1)] map of synthetic nuclei plus noise: (type,) np
+    prob, hv x, hv y."""
+    from test_torch_kernels import nuclei_pred
+
+    rng = np.random.default_rng(seed)
+    pred = nuclei_pred((160, 150), rng, 30, edge_touching=True)
+    pred += rng.normal(0, 0.05, pred.shape).astype(np.float32)
+    if typed:
+        tp = rng.integers(0, 5, pred.shape[:2]).astype(np.float32)
+        pred = np.dstack([tp, pred])
+    return pred
+
+
+def test_proc_np_hv():
+    pred = oracle_pred(20, typed=False)
+    want = j_host.proc_np_hv(pred)
+    assert_same(t_host.proc_np_hv(pred), want)
+    assert want.max() >= 15
+    x = pred[..., 1] * 3 + 1
+    assert_same(t_host._minmax_norm(x), j_host._minmax_norm(x))
+
+
+@pytest.mark.parametrize("typed,centroids", [(False, False), (False, True),
+                                             (True, True)])
+def test_process(typed, centroids):
+    pred = oracle_pred(21 + typed, typed)
+    nr_types = 5 if typed else None
+    want = j_host.process(pred, nr_types, return_centroids=centroids)
+    assert_same(t_host.process(pred, nr_types, return_centroids=centroids),
+                want)
+    assert want[0].max() >= 15
+
 
 def test_native_library_is_the_ports_own():
     lib = t_it._build_lib()

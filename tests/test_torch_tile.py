@@ -5,6 +5,8 @@
 - given the same stitched map, the mirror, post-processing, label
   compaction and instance tables are identical, typed and untyped;
 - the port's CLI writes the JAX CLI's files with the same json schema;
+  with `--host_post_proc` (float32 managers) the same instances, and
+  the manager's host branch gives the JAX host branch's outputs;
 - no module of the port imports jax or flax.
 """
 
@@ -110,71 +112,154 @@ def test_post_proc_and_tables_match_jax(typed):
                                       np.asarray(tab_j[key]), err_msg=key)
 
 
-def test_cli_matches_jax_cli(tmp_path):
-    """Both CLIs on the same `.tar` and image: the same output files and
-    the same json schema."""
-    import cv2
-
-    from hover_net_tpu.cli.run_infer import main as jax_main
+def forced_foreground_tar(path, nr_types=5, seed=2):
+    """A width-8 reference `.tar` of a seeded JAX init whose np head is a
+    constant foreground, so both packages find instances (cut by the hv
+    maps of the random net)."""
     from hover_net_tpu.models.checkpoints import save_torch_tar
-    from hover_net_tpu_torch.cli.run_infer import main as port_main
 
-    cfg = JaxConfig(mode="fast", nr_types=5, width=WIDTH)
+    cfg = JaxConfig(mode="fast", nr_types=nr_types, width=WIDTH)
     model = JaxHoVerNet(cfg)
     variables = jax.jit(lambda: model.init(
-        jax.random.PRNGKey(2), jnp.zeros((1, 256, 256, 3)), train=False))()
+        jax.random.PRNGKey(seed), jnp.zeros((1, 256, 256, 3)), train=False))()
     variables = jax.tree_util.tree_map(np.asarray, variables)
-    # a constant foreground np head, so both runs find instances
     head = dict(variables["params"]["decoder_np"]["u0_conv"])
     head["kernel"] = np.zeros_like(head["kernel"])
     head["bias"] = np.array([-2.0, 2.0], np.float32)
     variables["params"]["decoder_np"]["u0_conv"] = head
-    tar = str(tmp_path / "m.tar")
-    save_torch_tar(tar, variables, cfg)
+    save_torch_tar(path, variables, cfg)
+    return path
+
+
+@pytest.fixture(scope="module")
+def typed_tar(tmp_path_factory):
+    return forced_foreground_tar(str(tmp_path_factory.mktemp("ckpt") / "m.tar"))
+
+
+@pytest.fixture
+def f32_managers(monkeypatch):
+    """Both packages' tile managers in float32. The CLIs have no dtype
+    flag, and in bf16 the random net's hv maps (values in the thousands)
+    sit at the noise floor where the two packages' instances part
+    (AJI ~0.65, the same as either package's bf16 against its own f32);
+    in float32 they agree."""
+    import functools
+
+    from hover_net_tpu.infer.tile import TileInferManager as JaxTile
+    from hover_net_tpu_torch.infer.tile import TileInferManager as PortTile
+
+    for cls, dtype in ((JaxTile, jnp.float32), (PortTile, torch.float32)):
+        monkeypatch.setattr(cls, "__init__", functools.partialmethod(
+            cls.__init__, dtype=dtype))
+
+
+def run_both_clis(tmp_path, tar, flags, shape=(170, 190)):
+    """Both CLIs' `tile` on one seeded image (typed, qupath on); returns
+    {"jax" | "port": sorted relative paths written}."""
+    import cv2
+
+    from hover_net_tpu.cli.run_infer import main as jax_main
+    from hover_net_tpu_torch.cli.run_infer import main as port_main
 
     in_dir = tmp_path / "in"
     os.makedirs(in_dir)
-    img = np.random.default_rng(0).integers(0, 255, (170, 190, 3),
+    img = np.random.default_rng(0).integers(0, 255, shape + (3,),
                                             dtype=np.uint8)
     cv2.imwrite(str(in_dir / "t.png"), img)
     common = ["--model_path", tar, "--model_mode", "fast", "--width",
               str(WIDTH), "--nr_types", "5", "--type_info_path",
               os.path.join(REPO, "type_info.json"), "--batch_size", "4"]
     tile = ["tile", "--input_dir", str(in_dir), "--save_qupath"]
-    outs = {}
     cwd = os.getcwd()
     os.chdir(tmp_path)  # the JAX CLI logs to ./debug.log
     try:
-        jax_main(common + tile + ["--output_dir", str(tmp_path / "jax")])
-        port_main(common + ["--device", "cpu"] + tile
+        jax_main(common + flags + tile
+                 + ["--output_dir", str(tmp_path / "jax")])
+        port_main(common + flags + ["--device", "cpu"] + tile
                   + ["--output_dir", str(tmp_path / "port")])
     finally:
         os.chdir(cwd)
+    outs = {}
     for name in ("jax", "port"):
         root = tmp_path / name
         outs[name] = sorted(os.path.relpath(os.path.join(d, f), root)
                             for d, _, fs in os.walk(root) for f in fs)
+    return outs
+
+
+def read_outputs(root):
+    """(json payload, mat dict) of the image `t` under `root`."""
+    import scipy.io as sio
+
+    with open(root / "json" / "t.json") as f:
+        payload = json.load(f)
+    return payload, sio.loadmat(str(root / "mat" / "t.mat"))
+
+
+def test_cli_matches_jax_cli(tmp_path, typed_tar):
+    """Both CLIs on the same `.tar` and image: the same output files and
+    the same json schema."""
+    outs = run_both_clis(tmp_path, typed_tar, [])
     assert outs["port"] == outs["jax"] == [
         "json/t.json", "mat/t.mat", "overlay/t.png", "qupath/t.tsv"]
 
-    payload = {}
-    for name in ("jax", "port"):
-        with open(tmp_path / name / "json" / "t.json") as f:
-            payload[name] = json.load(f)
-    assert set(payload["port"]) == set(payload["jax"]) == {"mag", "nuc"}
-    assert payload["port"]["nuc"] and payload["jax"]["nuc"]
+    (pay_p, mat_p), (pay_j, mat_j) = (read_outputs(tmp_path / "port"),
+                                      read_outputs(tmp_path / "jax"))
+    assert set(pay_p) == set(pay_j) == {"mag", "nuc"}
+    assert pay_p["nuc"] and pay_j["nuc"]
     keys = {name: {tuple(sorted(v)) for v in p["nuc"].values()}
-            for name, p in payload.items()}
+            for name, p in (("port", pay_p), ("jax", pay_j))}
     assert keys["port"] == keys["jax"] == {
         ("bbox", "centroid", "contour", "type", "type_prob")}
+    assert ({k for k in mat_p if not k.startswith("__")}
+            == {k for k in mat_j if not k.startswith("__")})
+    assert mat_p["inst_map"].shape == (170, 190)
 
-    import scipy.io as sio
 
-    mats = {name: sio.loadmat(str(tmp_path / name / "mat" / "t.mat"))
-            for name in ("jax", "port")}
-    assert ({k for k in mats["port"] if not k.startswith("__")}
-            == {k for k in mats["jax"] if not k.startswith("__")})
-    assert mats["port"]["inst_map"].shape == (170, 190)
+def test_host_post_proc_cli_matches_jax_cli(tmp_path, typed_tar,
+                                            f32_managers):
+    """`--host_post_proc` in both CLIs (float32 managers): the same files,
+    an identical inst_map and equal json nuclei."""
+    outs = run_both_clis(tmp_path, typed_tar, ["--host_post_proc"])
+    assert outs["port"] == outs["jax"] == [
+        "json/t.json", "mat/t.mat", "overlay/t.png", "qupath/t.tsv"]
+    (pay_p, mat_p), (pay_j, mat_j) = (read_outputs(tmp_path / "port"),
+                                      read_outputs(tmp_path / "jax"))
+    np.testing.assert_array_equal(mat_p["inst_map"], mat_j["inst_map"])
+    assert pay_p == pay_j and len(pay_j["nuc"]) > 5
+    for key in ("inst_centroid", "inst_type", "inst_uid"):
+        np.testing.assert_array_equal(mat_p[key], mat_j[key], err_msg=key)
+
+
+def test_host_manager_matches_jax(tmp_path):
+    """TileInferManager(device_post_proc=False) in float32, untyped, on
+    the CPU: the JAX manager's prediction map, label map and info."""
+    from hover_net_tpu.infer.tile import TileInferManager as JaxTile
+    from hover_net_tpu_torch.infer.tile import TileInferManager as PortTile
+
+    from test_torch_host_copies import assert_same
+
+    tar = forced_foreground_tar(str(tmp_path / "m.tar"), None, seed=3)
+    kw = dict(model_path=tar, mode="fast", width=WIDTH, batch_size=4,
+              device_post_proc=False)
+    img = np.random.default_rng(1).integers(0, 255, (300, 340, 3),
+                                            dtype=np.uint8)
+    want = JaxTile(dtype=jnp.float32, **kw).predict_image(img)
+    mgr = PortTile(dtype=torch.float32, device="cpu", **kw)
+    got = mgr.predict_image(img)
+    assert got[0].shape == want[0].shape == (300, 340, 3)
+    rel = np.abs(got[0] - want[0]).max() / max(1.0, np.abs(want[0]).max())
+    assert rel < 2e-4, rel
+    assert_same(got[1:], want[1:])
+    assert len(want[2]) > 5 and mgr.last_post_proc_ms > 0
+
+
+def test_n_devices_above_one_exits():
+    from hover_net_tpu_torch.cli.run_infer import main as port_main
+
+    with pytest.raises(SystemExit, match="--n_devices > 1: not ported"):
+        port_main(["--model_path", "absent.tar", "--n_devices", "2", "tile",
+                   "--input_dir", "in", "--output_dir", "out"])
 
 
 def test_port_imports_no_jax():
