@@ -102,10 +102,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    float32 (TF32 off: the bf16 noise floor of the checkpoint), the host
    post-processing seconds per image, the trained model's summary
    totals and the phase's own seconds by part;
-13. prints the kernel table as one JSON line (K1's times at the WSI
+13. multi-device inference on one card: the mesh of infer/wsi.py and the
+   tile round-robin with every slot on cuda:0, each against the
+   single-device path, bit for bit: (a) phase 8's 4096^2 prediction map
+   of 1500 discs through the 3 phases (1024^2 tiles) from a 4-slot
+   striped buffer and from the single-device buffer: identical instance
+   maps and instance ids, K1 launched once per window-batch shard (as
+   often as the single-device run's batches, in fewer batches); (b)
+   phase 7's pseudo-slide through `WSIInferManager(force_mesh=True,
+   devices=["cuda:0"] * 2)` and the single-device manager, HNT_FUSED_ENC
+   unset: the identical stitched prediction, json nuclei and instance
+   map, the same forward batches, K1 once per shard; (c) phase 4's three
+   untyped 1000^2 images through `TileInferManager(devices=["cuda:0"] *
+   2)`: the json of phase 4, K1 once per image. (a) and (b) run single,
+   striped, striped, single, and print each run's seconds by phase (the
+   striping overhead on one card);
+14. prints the kernel table as one JSON line (K1's times at the WSI
    window batch; each kernel's bound from its inputs and outputs at the
-   timed shape), the card line, and last
-   {"ok": true, "device": {...}}.
+   timed shape; K1's launches are phase 7's and phase 13's), the card
+   line, and last {"ok": true, "device": {...}}.
 
 Outputs go to build/chip_smoke/ in the checkout.
 """
@@ -1047,6 +1062,239 @@ def check_k4(canvas):
             "launches": launches}
 
 
+# ------------------------------------------------- multi-device inference
+
+MESH_SLOTS = 4     # stripe slots of phase 13 (a), all on cuda:0
+MESH_TILE = 1024   # its post-proc tile: 16 windows a phase-1 batch, so
+                   # that every slot's shard runs K1
+# the order of the runs of phase 13 (a) and (b), in turns, so that the
+# striping overhead is read against a single-device run on either side
+TURNS = ("single", "striped", "striped", "single")
+
+
+def fill_pred_buffer(mgr, padded, coords):
+    """Scatter the patch outputs of `padded` at `coords` into `mgr`'s
+    device pred buffer as the chunk loop does: forward batches of
+    K3_BATCH patches a slot, striped through the mesh when there is
+    one."""
+    import torch
+
+    from hover_net_tpu_torch.infer.wsi import scatter_patches
+    from hover_net_tpu_torch.parallel.mesh import shard_batch
+
+    out_sz = mgr.cfg.patch_output_shape
+    slots = len(mgr.mesh) if mgr.mesh is not None else 1
+    bs = K3_BATCH * slots
+    for i in range(0, len(coords), bs):
+        c = coords[i:i + bs]
+        outs = torch.from_numpy(np.stack(
+            [padded[y:y + out_sz, x:x + out_sz] for y, x in c]))
+        if mgr.mesh is None:
+            scatter_patches(mgr._pred_dev, outs.to(mgr.device), c)
+        else:
+            shards = [t for t in shard_batch(mgr.mesh, outs, K3_BATCH)
+                      if len(t)]
+            mgr._scatter_striped(shards, c)
+
+
+def stitched_pred(mgr):
+    """The slide's stitched prediction in `mgr`'s device pred buffer, on
+    the first slot's device: the buffer cropped to the slide, or under a
+    mesh the stripes' core rows in slot order."""
+    import torch
+
+    h, w = (int(v) for v in mgr.wsi_proc_shape)
+    if mgr.mesh is None:
+        return mgr._pred_dev[:h, :w].clone()
+    s_rows, halo = mgr._stripe
+    return torch.cat([b[halo:halo + s_rows].to(mgr.device)
+                      for b in mgr._pred_dev])[:h, :w]
+
+
+def striped_post_proc(tar, work, card, device="cuda"):
+    """Phase 13 (a): the 4096^2 prediction map of phase 8 through the 3
+    phases from a MESH_SLOTS-slot striped buffer on cuda:0 and from the
+    single-device buffer, in TURNS. Returns K1's launches."""
+    from hover_net_tpu_torch.infer.wsi import WSIInferManager
+    from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
+
+    pred = synth_pred(synth_inst(SLIDE, SLIDE, SLIDE_NUCLEI, seed=8)
+                      ).astype(np.float16)
+    out_sz = 164
+    grid = np.arange(0, SLIDE, out_sz)
+    padded = np.zeros((grid[-1] + out_sz,) * 2 + (3,), np.float16)
+    padded[:SLIDE, :SLIDE] = pred
+    coords = np.array([(y, x) for y in grid for x in grid], np.int32)
+    res, launches = [], 0
+    for name in TURNS:
+        devices = [device] * (MESH_SLOTS if name == "striped" else 1)
+        mgr = WSIInferManager(
+            model_path=tar, mode="fast", nr_types=None, width=64,
+            batch_size=K3_BATCH, devices=devices,
+            tile_shape=MESH_TILE, ambiguous_size=128,
+            cache_path=os.path.join(work, f"mesh_cache_{name}"))
+        mgr.wsi_proc_shape = np.array((SLIDE, SLIDE))
+        mgr.wsi_mask = np.ones((SLIDE // 16, SLIDE // 16), np.uint8)
+        mgr.wsi_inst_info = {}
+        mgr.wsi_inst_map = np.zeros((SLIDE, SLIDE), np.int32)
+        mgr._alloc_pred_dev(3)
+        fill_pred_buffer(mgr, padded, coords)
+        proc_tail.launches = 0
+        t0 = time.perf_counter()
+        secs = mgr.post_process_phases()
+        wall = time.perf_counter() - t0
+        k1 = proc_tail.launches
+        launches += k1
+        res.append((name, mgr.wsi_inst_map.copy(), set(mgr.wsi_inst_info),
+                    mgr.n_window_batches, mgr.n_window_shards))
+        stripe = (f", stripes of {mgr._stripe[0]} core + 2 x "
+                  f"{mgr._stripe[1]} halo rows" if mgr._stripe else "")
+        log(f"mesh (a) {name}: {len(res[-1][2])} nuclei, "
+            f"{mgr.n_window_batches} window batches, {mgr.n_window_shards} "
+            f"shards, K1 launches {k1}{stripe}; post-proc {wall:.3f} s, "
+            "phase seconds " + ", ".join(f"{v:.3f}" for v in secs)
+            + f" ({card})")
+        if k1 != mgr.n_window_shards or k1 == 0:
+            raise AssertionError(f"mesh (a) {name}: K1 ran {k1} times for "
+                                 f"{mgr.n_window_shards} shards")
+        del mgr
+    _, map_1, ids_1, batches_1, _ = res[0]
+    for name, map_n, ids_n, batches_n, shards_n in res[1:]:
+        if not np.array_equal(map_n, map_1) or ids_n != ids_1:
+            raise AssertionError(f"mesh (a): a {name} run's instances "
+                                 "differ from the first single-device run's")
+        if name == "striped" and (shards_n != batches_1
+                                  or batches_n >= shards_n):
+            raise AssertionError(f"mesh (a): {shards_n} shards in "
+                                 f"{batches_n} batches, single-device "
+                                 f"{batches_1} batches")
+    log(f"mesh (a): {MESH_SLOTS} slots == one device, bit for bit "
+        f"({len(ids_1)} nuclei)")
+    return launches
+
+
+def striped_slide(tar, dirs, work, card, device="cuda"):
+    """Phase 13 (b): phase 7's pseudo-slide through the 2-slot mesh
+    manager and the single-device manager in TURNS, HNT_FUSED_ENC unset:
+    the
+    stitched prediction (before post-processing), the json and the
+    instance map must be identical. Returns K1's launches."""
+    import torch
+
+    from hover_net_tpu_torch.infer.wsi import WSIInferManager
+    from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
+
+    if os.environ.get("HNT_FUSED_ENC"):
+        raise AssertionError("HNT_FUSED_ENC is set")
+    res, launches = [], 0
+    for turn, name in enumerate(TURNS):
+        extra = (dict(force_mesh=True, devices=[device] * 2)
+                 if name == "striped" else {})
+        out = os.path.join(work, f"mesh_out_{turn}_{name}")
+        mgr = WSIInferManager(
+            model_path=tar, mode="fast", nr_types=None, width=64,
+            batch_size=K3_BATCH, device=device, chunk_shape=2048,
+            tile_shape=2048, ambiguous_size=128, proc_mag=40,
+            cache_path=os.path.join(work, f"mesh_cache_{turn}"), **extra)
+        preds = []
+        phases = mgr.post_process_phases
+
+        def keep_pred_then_phases():
+            preds.append(stitched_pred(mgr))
+            return phases()
+
+        mgr.post_process_phases = keep_pred_then_phases
+        proc_tail.launches = 0
+        t0 = time.perf_counter()
+        written = mgr.process_wsi_list(dirs["slides"], out,
+                                       input_mask_dir=dirs["masks"])
+        wall = time.perf_counter() - t0
+        k1 = proc_tail.launches
+        launches += k1
+        if written != 1:
+            raise AssertionError(f"mesh (b) {name}: no json written")
+        with open(os.path.join(out, "slide.json")) as f:
+            nuc = json.load(f)["nuc"]
+        res.append((name, nuc, np.array(mgr.wsi_inst_map),
+                    mgr.n_forward_batches, preds[0]))
+        log(f"mesh (b) {name}: {SLIDE}^2 slide in {wall:.3f} s wall, "
+            f"{mgr.n_forward_batches} forward batches, "
+            f"{mgr.n_window_batches} window batches, {mgr.n_window_shards} "
+            f"shards, K1 launches {k1}, {len(nuc)} nuclei; seconds "
+            + ", ".join(f"{k} {v:.3f}" for k, v in
+                        mgr.timings["slide"].items()) + f" ({card})")
+        if k1 != mgr.n_window_shards or k1 == 0:
+            raise AssertionError(f"mesh (b) {name}: K1 ran {k1} times for "
+                                 f"{mgr.n_window_shards} shards")
+        del mgr
+    _, nuc_1, map_1, fwd_1, pred_1 = res[0]
+    if not torch.isfinite(pred_1).all():
+        raise AssertionError("mesh (b): the prediction is not finite")
+    for name, nuc_n, map_n, fwd_n, pred_n in res[1:]:
+        if not torch.equal(pred_n, pred_1) or nuc_n != nuc_1 \
+                or not np.array_equal(map_n, map_1) or fwd_n != fwd_1:
+            raise AssertionError(f"mesh (b): a {name} run differs from the "
+                                 "first single-device run")
+    log(f"mesh (b): 2 slots == one device, bit for bit: the stitched "
+        f"{tuple(pred_1.shape)} prediction (max |value| "
+        f"{float(pred_1.abs().max()):.3f}), {len(nuc_1)} nuclei")
+    return launches
+
+
+def round_robin_tiles(work, card, device="cuda"):
+    """Phase 13 (c): phase 4's untyped images through a 2-slot tile
+    manager on cuda:0; its json must be phase 4's. Returns K1's
+    launches."""
+    from hover_net_tpu_torch.infer.tile import TileInferManager
+    from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
+
+    mgr = TileInferManager(
+        model_path=os.path.join(work, "untyped.tar"), mode="fast",
+        nr_types=None, width=64,
+        type_info_path=os.path.join(ROOT, "type_info.json"),
+        devices=[device] * 2)
+    src = os.path.join(work, "in_untyped")
+    out = os.path.join(work, "mesh_out_tiles")
+    proc_tail.launches = 0
+    t0 = time.perf_counter()
+    written = mgr.process_file_list(src, out, save_format="json")
+    wall = time.perf_counter() - t0
+    k1 = proc_tail.launches
+    names = sorted(os.listdir(src))
+    if written != len(names) or k1 != len(names) or mgr._rr != len(names):
+        raise AssertionError(f"mesh (c): {written} images written, K1 ran "
+                             f"{k1} times, {mgr._rr} dispatched")
+    for name in names:
+        stem = os.path.splitext(name)[0]
+        with open(os.path.join(out, "json", f"{stem}.json")) as f:
+            got = json.load(f)
+        with open(os.path.join(work, "out_untyped", "json",
+                               f"{stem}.json")) as f:
+            want = json.load(f)
+        if got != want:
+            raise AssertionError(f"mesh (c): {stem}.json differs from "
+                                 "phase 4's")
+    log(f"mesh (c): {written} images round-robin over 2 slots in "
+        f"{wall:.3f} s wall, K1 launches {k1}; json == phase 4's ({card})")
+    return k1
+
+
+def check_multi_device(work, dirs, card, device="cuda:0"):
+    """Phase 13: (a), (b) and (c), every slot on `device`. Returns K1's
+    launches in all three."""
+    import torch
+
+    t0 = time.perf_counter()
+    tar = os.path.join(work, "wsi.tar")
+    launches = striped_post_proc(tar, work, card, device)
+    torch.cuda.empty_cache()
+    launches += striped_slide(tar, dirs, work, card, device)
+    torch.cuda.empty_cache()
+    launches += round_robin_tiles(work, card, device)
+    log(f"phase 13 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------ training
 
 TRAIN_IMAGES = 3    # 1000^2 training images: 3 x 49 patches of 540^2
@@ -1526,6 +1774,8 @@ def main():
     torch.cuda.empty_cache()
 
     check_evaluation(work, check_training(work))
+    torch.cuda.empty_cache()
+    k1_launches += check_multi_device(work, dirs, card)
 
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda",

@@ -19,15 +19,19 @@ With HNT_FUSED_ENC=1 in the environment, a fast-mode bf16 model whose
 CUDA kernel on a GPU. `--host_post_proc` (tile) post-processes on the
 host with the oracle (ops/post_proc_host.process) instead of the device
 kernel; `--profile_dir DIR` writes a torch.profiler trace of the run
-(tile or wsi) under DIR. `--n_devices` above 1 is not ported yet and
-exits with an error.
+(tile or wsi) under DIR.
+
+`--n_devices N` runs on N cards from `--device` on (clamped, with a
+warning, to the cards there are; the CPU is one device): `tile` hands
+successive images to the cards in turn, `wsi` builds the mesh of
+infer/wsi.py, with the stitched prediction map row-striped over the
+cards and each card post-processing its share of every window batch.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-import sys
 
 
 def build_parser():
@@ -56,7 +60,9 @@ def build_parser():
                    help="write a torch.profiler trace of the run here "
                         "(open in TensorBoard or chrome://tracing)")
     p.add_argument("--n_devices", type=int, default=1,
-                   help="only 1 is ported")
+                   help="devices to run on, from --device on: tile mode "
+                        "round-robins images over them, wsi mode stripes "
+                        "the prediction map and post-processing over them")
 
     sub = p.add_subparsers(dest="command", required=True)
     tile = sub.add_parser("tile")
@@ -96,9 +102,6 @@ def main(argv=None):
     from .. import runtime
 
     args = build_parser().parse_args(argv)
-    if args.n_devices > 1:
-        sys.exit("hover_net_tpu_torch: --n_devices > 1: not ported yet (use "
-                 "hover_net_tpu.cli.run_infer)")
     logging.basicConfig(
         level=logging.INFO,
         format="|%(asctime)s.%(msecs)03d| [%(levelname)s] %(message)s",
@@ -108,7 +111,7 @@ def main(argv=None):
         model_path=args.model_path, mode=args.model_mode,
         nr_types=args.nr_types if args.nr_types > 0 else None,
         type_info_path=args.type_info_path, batch_size=args.batch_size,
-        width=args.width, device=args.device)
+        width=args.width, device=args.device, n_devices=args.n_devices)
     with runtime.profile_trace(args.profile_dir):
         if args.command == "tile":
             from ..infer.tile import TileInferManager

@@ -1,15 +1,22 @@
-"""Shared inference manager: device, model and checkpoint, type info, json.
+"""Shared inference manager: devices, model and checkpoint, type info, json.
 
 Counterpart of hover_net_tpu/infer/base.py. Checkpoints are reference
 PyTorch `.tar` files ({'desc': state_dict}), which load into the port's
 module tree with strict=True; a JAX `.msgpack` checkpoint is converted
 once with hover_net_tpu.models.checkpoints.save_torch_tar.
+
+A manager runs on an ordered list of devices (`devices`): the first
+holds the loaded model, and `model_on(device)` gives a replica on any
+other, made once per device (the counterpart of the JAX managers'
+`_variables_on` / `_mesh_variables`).
 """
 
 from __future__ import annotations
 
+import copy
 import json
-from typing import Optional
+import logging
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -17,7 +24,10 @@ import torch
 from ..models.checkpoints import load_torch_tar
 from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..ops.instance_table import emit_nuc_json
+from ..parallel.mesh import canonical_device
 from .steps import forward_batches
+
+logger = logging.getLogger("hover_net_tpu_torch")
 
 
 def resolve_device(device) -> torch.device:
@@ -28,6 +38,30 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            "available (pass --device cpu to run on the CPU)")
     return dev
+
+
+def resolve_devices(n_devices: int, device) -> Tuple[torch.device, ...]:
+    """The devices of an `n_devices` run on `device`'s type: for CUDA,
+    `device` (cuda:0 by default) and the next ones, clamped to the cards
+    there are, as the JAX managers clamp to `len(jax.devices())`; the CPU
+    is one device. A clamp logs a warning; a CUDA request without a GPU
+    raises (`resolve_device`), it never moves to the CPU."""
+    dev = canonical_device(resolve_device(device))
+    n = max(1, int(n_devices))
+    if dev.type == "cuda":
+        avail = torch.cuda.device_count() - dev.index
+        if avail < 1:
+            raise RuntimeError(f"device {device!r} requested but there are "
+                               f"{torch.cuda.device_count()} CUDA devices")
+    else:
+        avail = 1
+    if n > avail:
+        logger.warning("n_devices=%d: only %d %s device(s) from %s; running "
+                       "on %d", n, avail, dev.type, dev, avail)
+        n = avail
+    if dev.type == "cuda":
+        return tuple(torch.device("cuda", dev.index + i) for i in range(n))
+    return (dev,)
 
 
 def load_type_info(path: Optional[str], nr_types: Optional[int]):
@@ -56,16 +90,37 @@ class InferManagerBase:
                  nr_types: Optional[int] = None,
                  type_info_path: Optional[str] = None, width: int = 64,
                  dtype: torch.dtype = torch.bfloat16, batch_size: int = 32,
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 device="cuda", n_devices: int = 1,
+                 devices: Optional[Sequence] = None):
+        """`devices`, when given, lists the devices to run on and may
+        repeat one; otherwise `resolve_devices(n_devices, device)` picks
+        them."""
+        if devices is not None:
+            self.devices = tuple(canonical_device(resolve_device(d))
+                                 for d in devices)
+            if not self.devices:
+                raise ValueError("devices is empty")
+        else:
+            self.devices = resolve_devices(n_devices, device)
+        self.device = self.devices[0]
         self.cfg = HoVerNetConfig(mode=mode, nr_types=nr_types, width=width,
                                   dtype=dtype)
         self.model = HoVerNet(self.cfg)
         self.model.load_state_dict(load_torch_tar(model_path), strict=True)
         self.model.to(self.device).eval()
+        self._replicas: Dict[torch.device, HoVerNet] = {}
         self.nr_types = nr_types
         self.batch_size = batch_size
         self.type_info = load_type_info(type_info_path, nr_types)
+
+    def model_on(self, device: torch.device) -> HoVerNet:
+        """The model on `device`: the loaded one on the first device, else
+        a copy made at the first call for that device and kept."""
+        if device == self.device:
+            return self.model
+        if device not in self._replicas:
+            self._replicas[device] = copy.deepcopy(self.model).to(device)
+        return self._replicas[device]
 
     @torch.no_grad()
     def run_batches(self, patches: torch.Tensor) -> torch.Tensor:

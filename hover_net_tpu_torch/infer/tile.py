@@ -8,8 +8,17 @@ returns the per-instance tables, and the host builds the json from them
 with the native contour tracer. Every map is post-processed whole, so
 the JAX package's seam guard has no counterpart here.
 
+Several devices (`n_devices`, or an explicit `devices` list that may
+repeat one) take successive images in turn, as the JAX manager's
+round-robin does: each image's whole pipeline (forward, energy, K1,
+tables) runs on its device with that device's model replica, up to
+3 images a device wait for their finalize, and the finalizes stay in
+input order. One thread dispatches, and it waits for each image's
+device work (K1's host reads, the stage timings) before the next: on
+distinct GPUs the images do not overlap yet.
+
 `device_post_proc=False` (the CLI's `--host_post_proc`) selects the host
-branch: the forward runs on the manager's device, the stitched
+branch: the forward runs on the manager's first device, the stitched
 prediction map is pulled, and the host oracle
 (ops/post_proc_host.process) post-processes it. The branch runs only
 when the caller asks for it; it is never a fallback for the device path.
@@ -70,14 +79,15 @@ class TileInferManager(base.InferManagerBase):
         self.patch_output_shape = self.cfg.patch_output_shape
         self.device_post_proc = device_post_proc
         self._pipelines = {}
+        self._rr = 0  # images dispatched: the next one's device
         self.timings = []
 
-    def _pipeline_for(self, grid):
-        """One pipeline per canonical grid class."""
-        if grid not in self._pipelines:
-            self._pipelines[grid] = make_tile_pipeline(
-                self.model, grid, batch=self.batch_size)
-        return self._pipelines[grid]
+    def _pipeline_for(self, grid, device):
+        """One pipeline per canonical grid class and device."""
+        if (grid, device) not in self._pipelines:
+            self._pipelines[grid, device] = make_tile_pipeline(
+                self.model_on(device), grid, batch=self.batch_size)
+        return self._pipelines[grid, device]
 
     def _reflect_padded(self, img: np.ndarray):
         """(reflect-padded image, patch top-left coords, grid) of the exact
@@ -89,9 +99,9 @@ class TileInferManager(base.InferManagerBase):
         return padded, coords, grid
 
     def predict_image_async(self, img: np.ndarray):
-        """Run one RGB uint8 image through the device pipeline. Returns
-        (full, inst, n_labels, tp, tables) tensors at canonical size and
-        the device ms of each stage."""
+        """Run one RGB uint8 image through the device pipeline on the next
+        device in turn. Returns (full, inst, n_labels, tp, tables) tensors
+        at canonical size and the device ms of each stage."""
         src_h, src_w = img.shape[:2]
         win, step = self.patch_input_shape, self.patch_output_shape
         padded, coords, grid = self._reflect_padded(img)
@@ -106,10 +116,11 @@ class TileInferManager(base.InferManagerBase):
             xs = np.arange(0, cols * step, step, dtype=np.int32)
             yy, xx = np.meshgrid(ys, xs, indexing="ij")
             coords = np.stack([yy.ravel(), xx.ravel()], axis=-1)
-        run = self._pipeline_for((rows, cols))
-        out = run(torch.from_numpy(np.ascontiguousarray(padded)).to(
-                      self.device),
-                  torch.from_numpy(coords.astype(np.int64)).to(self.device),
+        device = self.devices[self._rr % len(self.devices)]
+        self._rr += 1
+        run = self._pipeline_for((rows, cols), device)
+        out = run(torch.from_numpy(np.ascontiguousarray(padded)).to(device),
+                  torch.from_numpy(coords.astype(np.int64)).to(device),
                   (src_h, src_w))
         return out, run.stage_ms()
 
@@ -218,7 +229,8 @@ class TileInferManager(base.InferManagerBase):
         """save_format "all" writes mat/overlay/json[/qupath]; "json"
         writes json[/qupath] from the device tables alone. The host
         finalize and save of image k run on one worker thread while the
-        main thread runs image k+1 on the device; on the host branch each
+        main thread runs the next images on the devices (up to 3 a device
+        wait for the worker); on the host branch each
         image is predicted, post-processed and saved in turn on the main
         thread. Returns the number of images written."""
         pattern = re.sub(r"([\[\]])", "[\\1]", f"{input_dir}/*")
@@ -287,7 +299,8 @@ class TileInferManager(base.InferManagerBase):
                         n_failed += 1
                         logger.exception("crash on %s", name)
                         continue
-                while futs and (path is None or len(futs) >= 3):
+                while futs and (path is None
+                                or len(futs) >= 3 * len(self.devices)):
                     futs.popleft().result()
         if n_failed:
             logger.error("%d/%d images failed", n_failed, len(files))

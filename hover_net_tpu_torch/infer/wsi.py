@@ -1,7 +1,6 @@
-"""WSI inference on one CUDA device: a slide -> per-nucleus json.
+"""WSI inference on one or several CUDA devices: a slide -> per-nucleus json.
 
-Counterpart of hover_net_tpu/infer/wsi.py on a single device, with its
-structure:
+Counterpart of hover_net_tpu/infer/wsi.py, with its structure:
 
 - chunked inference: a prefetch thread reads chunk k+2 of the slide and
   pushes it to the device while the main thread gathers and forwards the
@@ -20,16 +19,44 @@ structure:
   renumber and stitch run in order;
 - resume: a slide whose json exists is skipped.
 
+Several devices (`n_devices` > 1, an explicit `devices` list, or
+`force_mesh`) build a mesh (parallel/mesh.py), and the JAX manager's
+mesh branches run in one process:
+
+- each forward batch is `batch_size` times the slots, split into
+  consecutive `batch_size` shards, so that every shard is a batch the
+  single-device path runs; each runs on its slot's device with that
+  device's model replica, and the chunk image is pushed once to each
+  distinct device;
+- the device pred buffer is row-striped (`_alloc_pred_dev`): each slot
+  owns `s_rows` core rows plus `_STRIPE_HALO` landing rows on either
+  side, and the budget is `hbm_pred_budget` a slot; the batch's outputs
+  are gathered to every slot, which writes the patches that touch its
+  core rows (`_scatter_striped`);
+- a window batch is `batch` windows a slot: each slot cuts every
+  window's overlap with its core rows, a `psum_scatter` hands slot d its
+  shard fully assembled, and the post-processing tail (K1 on a GPU) runs
+  on slot d's device (`_pp_windows`); on the mmap path each window batch
+  is split over the slots the same way. Core rows are disjoint, so the
+  sum adds exact zeros and the instance map is the single-device path's,
+  bit for bit;
+- the forward under a mesh keeps the standard (cuDNN) encoder, as the
+  JAX manager does, where GSPMD cannot partition the Pallas encoder;
+  here nothing forbids K3 on a slot's device, and lifting the rule is an
+  open item.
+
 Differences from the JAX manager, all of them deliberate:
 
-- one device only: the mesh and striped multi-device branches are not
-  ported (the CLI refuses `--n_devices` > 1);
 - K1 solves every window whole, so there is no seam guard;
 - no post-proc prewarm: PyTorch compiles no programs ahead;
 - eager PyTorch has no compiled batch shape to keep, so the last forward
   batch of a chunk and the last window batch of a shape class run at
-  their own size instead of being padded. `scatter_patches` keeps the
-  clamp of `lax.dynamic_update_slice` all the same.
+  their own size instead of being padded (under a mesh the last shards
+  are short or empty, and an empty shard launches nothing).
+  `scatter_patches` keeps the clamp of `lax.dynamic_update_slice` all
+  the same; the striped scatter writes a patch only into the stripes
+  whose core rows it touches, where the JAX scatter parks the others in
+  the dead top halo.
 """
 
 from __future__ import annotations
@@ -59,17 +86,31 @@ from ..metrics.stats import remap_label
 from ..ops import cc_np
 from ..ops.post_proc_device import compact_labels_u16, proc_np_hv_batch
 from ..ops.post_proc_host import extract_instance_info
+from ..parallel.mesh import (
+    all_gather,
+    make_mesh,
+    psum_scatter,
+    replicate,
+    shard_batch,
+    shard_bounds,
+)
 from . import base
 from .steps import extract_patches, infer_output
 from .wsi_handler import get_file_handler
 
 logger = logging.getLogger("hover_net_tpu_torch")
 
+# landing rows above and below each slot's core stripe of the striped
+# device pred buffer: at least one patch output, so that a patch that
+# straddles a stripe border lands whole in both neighbours' stripes
+_STRIPE_HALO = 256
 
-def _warn_u16_overflow(n_labels: torch.Tensor):
+
+def _warn_u16_overflow(n_labels):
     """Loud signal if the uint16 window compaction clipped: every instance
-    ranked >= 65535 was aliased into one label."""
-    n = int(n_labels.max())
+    ranked >= 65535 was aliased into one label. `n_labels`: the label
+    counts of each shard of a window batch."""
+    n = max(int(t.max()) for t in n_labels)
     if n > 65535:
         logger.warning(
             "uint16 window compaction overflow: %d instances in one "
@@ -117,7 +158,7 @@ def _to_host_async(t: torch.Tensor):
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     ev = torch.cuda.Event()
-    ev.record()
+    ev.record(torch.cuda.current_stream(t.device))
     return host, ev
 
 
@@ -128,20 +169,32 @@ def _host(pulled) -> np.ndarray:
     return host.numpy()
 
 
+def _host_cat(pulls) -> np.ndarray:
+    """The pulls of a batch's shards, in order, as one array."""
+    return np.concatenate([_host(p) for p in pulls], axis=0)
+
+
 class WSIInferManager(base.InferManagerBase):
     # class-level defaults, so that instances built with __new__ (the
     # tests drive single methods) run on the CPU with the mmap pred map
     device = torch.device("cpu")
+    mesh = None
+    _stripe = None
     _mask_integral = None
     _pred_dev_mode = False
     _pred_dev = None
     n_forward_batches = 0
     n_window_batches = 0
+    n_window_shards = 0
 
     def __init__(self, *args, chunk_shape=10000, tile_shape=2048,
                  ambiguous_size=128, proc_mag=40, cache_path="cache",
                  pred_map_dtype="float16", hbm_pred_budget: int = 4 << 30,
-                 **kwargs):
+                 force_mesh: bool = False, **kwargs):
+        """`n_devices`, `devices` and `device` pick the devices
+        (`base.InferManagerBase`); more than one builds the mesh, and so
+        does `force_mesh` on one device (to price the striped path
+        against the single-device one on one card)."""
         super().__init__(*args, **kwargs)
         self.chunk_shape = int(chunk_shape)
         self.tile_shape = int(tile_shape)
@@ -160,53 +213,98 @@ class WSIInferManager(base.InferManagerBase):
         self._mask_integral = None
         # per slide: seconds of inference, of each post-proc phase, of
         # the json; and the forward and window batches of the last slide
+        self.mesh = (make_mesh(devices=self.devices)
+                     if len(self.devices) > 1 or force_mesh else None)
         self.timings: Dict[str, Dict[str, float]] = {}
         self.n_forward_batches = 0
         self.n_window_batches = 0
+        self.n_window_shards = 0
 
     # ------------------------------------------------------- device fns
 
     def _forward_batch(self, chunk_img: torch.Tensor, coords: torch.Tensor
                        ) -> torch.Tensor:
-        """Gather + forward one batch of patches of a chunk on the device;
-        the outputs are cast to the pred map's dtype there."""
+        """Gather + forward one batch of patches of a chunk on the chunk
+        image's device, with that device's model; the outputs are cast to
+        the pred map's dtype there. Under a mesh the encoder is the
+        standard one (`allow_fused_enc`), as in the JAX manager."""
         out_dtype = (torch.float16 if self.pred_map_dtype == np.float16
                      else torch.float32)
         patches = extract_patches(chunk_img, coords,
                                   self.cfg.patch_input_shape)
         with torch.no_grad():
-            return infer_output(self.model, patches).to(out_dtype)
+            return infer_output(self.model_on(chunk_img.device), patches,
+                                allow_fused_enc=self.mesh is None
+                                ).to(out_dtype)
 
     def _run_chunk(self, chunk_img, patch_coords: np.ndarray,
                    out_coords: np.ndarray | None = None):
         """Forward all selected patches of one chunk in batches.
 
-        patch_coords: [K, 2] input top-lefts relative to the chunk.
-        Default: returns a list of (host tensor, event) pulls started
-        here, which the writer thread completes. Device-resident mode
+        patch_coords: [K, 2] input top-lefts relative to the chunk. Under
+        a mesh a batch is `batch_size` patches a slot, in consecutive
+        shards (an empty shard runs nothing). Default: returns a list of
+        (host tensor, event) pulls started here, one a shard in order,
+        which the writer thread completes. Device-resident mode
         (out_coords given): the outputs scatter into the device pred
         buffer instead, and nothing crosses to the host."""
         bs = self.batch_size
-        dev_img = self._push_chunk(chunk_img)
-        coords = torch.from_numpy(patch_coords.astype(np.int64)).to(
-            self.device)
+        slots = self.mesh if self.mesh is not None else (self.device,)
+        imgs = self._push_chunk(chunk_img)
+        if self.mesh is None:
+            imgs = {self.device: imgs}
+        coords = torch.from_numpy(patch_coords.astype(np.int64))
+        coords = {dev: coords.to(dev) for dev in imgs}
         outs = []
-        for i in range(0, len(patch_coords), bs):
-            out = self._forward_batch(dev_img, coords[i:i + bs])
-            self.n_forward_batches += 1
-            if out_coords is not None:
-                scatter_patches(self._pred_dev, out, out_coords[i:i + bs])
+        for i in range(0, len(patch_coords), bs * len(slots)):
+            shards = []
+            for dev, (lo, hi) in zip(slots, shard_bounds(
+                    min(len(patch_coords) - i, bs * len(slots)), slots, bs)):
+                if lo == hi:
+                    break
+                shards.append(self._forward_batch(
+                    imgs[dev], coords[dev][i + lo:i + hi]))
+                self.n_forward_batches += 1
+            if out_coords is None:
+                outs += [_to_host_async(o) for o in shards]
+            elif self.mesh is None:
+                scatter_patches(self._pred_dev, shards[0],
+                                out_coords[i:i + bs])
             else:
-                outs.append(_to_host_async(out))
+                self._scatter_striped(
+                    shards, out_coords[i:i + bs * len(slots)])
         return outs
 
-    def _push_chunk(self, chunk_img) -> torch.Tensor:
-        """Host->device push of one chunk image (no-op on a tensor: the
-        prefetch thread pushes ahead of the dispatch loop)."""
-        if isinstance(chunk_img, torch.Tensor):
+    def _push_chunk(self, chunk_img):
+        """Host->device push of one chunk image: a tensor, or under a mesh
+        {device: tensor}, pushed once to each distinct device. No-op on
+        what a push returned: the prefetch thread pushes ahead of the
+        dispatch loop."""
+        if isinstance(chunk_img, (torch.Tensor, dict)):
             return chunk_img
-        return torch.from_numpy(np.ascontiguousarray(chunk_img)).to(
-            self.device)
+        img = torch.from_numpy(np.ascontiguousarray(chunk_img))
+        if self.mesh is None:
+            return img.to(self.device)
+        return dict(zip(self.mesh, replicate(img, self.mesh)))
+
+    def _scatter_striped(self, shards, coords: np.ndarray) -> None:
+        """Under a mesh: gather a batch's output shards to every slot;
+        each slot writes, in order, the patches that touch its core rows
+        at row `oy - row0 + halo` of its stripe (a straddling patch lands
+        whole in both neighbours; halo copies are never read)."""
+        s_rows, halo = self._stripe
+        gathered = all_gather(
+            shards + [shards[0][:0]] * (len(self.mesh) - len(shards)),
+            self.mesh)
+        for d, (buf, outs) in enumerate(zip(self._pred_dev, gathered)):
+            row0 = d * s_rows
+            ph, pw = outs.shape[1], outs.shape[2]
+            outs = outs.to(buf.dtype)
+            for k, (oy, ox) in enumerate(np.asarray(coords, np.int64)):
+                if oy < row0 + s_rows and oy + ph > row0 \
+                        and ox + pw <= buf.shape[1]:
+                    y = oy - row0 + halo
+                    buf[y:y + ph, ox:ox + pw] = outs[k]
 
     def _post_proc(self, seg: torch.Tensor, valid: torch.Tensor):
         """[B, H, W, 3] windows + [B, H, W] valid masks -> (uint16
@@ -214,20 +312,70 @@ class WSIInferManager(base.InferManagerBase):
         (K1 on a GPU), label compaction."""
         return compact_labels_u16(proc_np_hv_batch(seg, valid))
 
-    def _pp_windows(self, shape, starts, boxes):
-        """Post-proc of a batch of canonical windows sliced from the
-        device pred buffer. starts [B, 2] window anchors, boxes [B, 4]
-        (y0, y1, x0, x1) valid boxes in window coordinates. Returns
-        (inst uint16, n_labels, tp uint8 or None)."""
+    def _pp_windows(self, shape, starts, boxes, batch: int):
+        """Post-proc of a batch of canonical windows read from the device
+        pred buffer. starts [B, 2] window anchors, boxes [B, 4] (y0, y1,
+        x0, x1) valid boxes in window coordinates. Returns a list with
+        one (inst uint16, n_labels, tp uint8 or None) for each shard.
+
+        One device: one shard, the windows sliced from the buffer. Under a
+        mesh, `batch` windows a slot: every slot cuts each window's
+        overlap with its core rows (`_stripe_windows`), `psum_scatter`
+        hands slot d its consecutive shard fully assembled, and slot d
+        runs the tail on its own device; an empty shard runs nothing.
+        The slots' tails are dispatched one after another from this
+        thread. K1 reads a host flag every few watershed sweeps, so on
+        distinct GPUs slot d + 1's tail starts only when slot d's K1
+        returns: the slots' post-processing does not overlap yet."""
+        if self.mesh is None:
+            hc, wc = shape
+            buf = self._pred_dev
+            starts = _clamp_starts(starts, buf.shape[:2], shape)
+            wins = torch.stack([buf[y:y + hc, x:x + wc] for y, x in starts])
+            return [self._pp_tail(wins, starts, boxes)]
+        parts = [self._stripe_windows(d, shape, starts)
+                 for d in range(len(self.mesh))]
+        out = []
+        for wins, (lo, hi) in zip(
+                psum_scatter(parts, self.mesh, batch),
+                shard_bounds(len(starts), self.mesh, batch)):
+            if lo < hi:
+                out.append(self._pp_tail(wins, starts[lo:hi],
+                                         boxes[lo:hi]))
+        return out
+
+    def _stripe_windows(self, d: int, shape, starts) -> torch.Tensor:
+        """Slot d's part of a window batch: each window's rows inside the
+        slot's core rows [row0, row0 + s_rows) copied from its stripe,
+        zeros elsewhere (the JAX manager's clamped and masked gather);
+        the window's column start clamps as `lax.dynamic_slice` clamps
+        it."""
         hc, wc = shape
-        buf = self._pred_dev
-        dev = buf.device
-        starts = _clamp_starts(starts, buf.shape[:2], shape)
-        wins = torch.stack([buf[y:y + hc, x:x + wc] for y, x in starts])
+        buf = self._pred_dev[d]
+        s_rows, halo = self._stripe
+        row0 = d * s_rows
+        part = torch.zeros((len(starts), hc, wc, buf.shape[-1]),
+                           dtype=buf.dtype, device=buf.device)
+        for k, (wy, wx) in enumerate(starts):
+            wy, wx = int(wy), min(max(int(wx), 0), buf.shape[1] - wc)
+            lo, hi = max(wy, row0), min(wy + hc, row0 + s_rows)
+            if lo < hi:
+                part[k, lo - wy:hi - wy] = buf[lo - row0 + halo:
+                                               hi - row0 + halo, wx:wx + wc]
+        return part
+
+    def _pp_tail(self, wins: torch.Tensor, starts, boxes):
+        """The post-processing tail of [B, hc, wc, C] windows on their
+        device: the outside-slide part zeroed, the valid mask from the
+        boxes, `_post_proc` (K1 on a GPU). Returns (inst uint16,
+        n_labels, tp uint8 or None)."""
+        hc, wc = wins.shape[1], wins.shape[2]
+        dev = wins.device
         wins = wins.float()
+        self.n_window_shards += 1
         ri = torch.arange(hc, device=dev)[None, :, None]
         ci = torch.arange(wc, device=dev)[None, None, :]
-        s = torch.as_tensor(starts, device=dev)[:, :, None, None]
+        s = torch.as_tensor(np.asarray(starts), device=dev)[:, :, None, None]
         img_h, img_w = (int(v) for v in self.wsi_proc_shape)
         # zero the outside-slide part of each window (the buffer's slack
         # may hold anything), as the mmap staging zero-fills it
@@ -243,17 +391,33 @@ class WSIInferManager(base.InferManagerBase):
         return inst, nlab, tp
 
     def _alloc_pred_dev(self, out_ch: int):
-        """The device-resident pred buffer: one zeroed (Bh, Bw, C) block,
-        256-aligned with one patch output of slack per axis (covers every
-        canonical window class and edge patch overruns)."""
+        """The device-resident pred buffer; sets `_pred_dev` and
+        `_stripe`.
+
+        One device: one zeroed (Bh, Bw, C) block, 256-aligned with one
+        patch output of slack per axis (covers every canonical window
+        class and edge patch overruns). Mesh: row-striped, a list of one
+        (s_rows + 2 * halo, Bw, C) block a slot on the slot's device,
+        s_rows = Bh / slots rounded up to 256; slot d's core rows
+        [d * s_rows, (d + 1) * s_rows) sit at [halo, halo + s_rows)."""
         proc_shape = tuple(int(v) for v in self.wsi_proc_shape)
         out_sz = self.cfg.patch_output_shape
         bh = -(-(proc_shape[0] + out_sz) // 256) * 256
         bw = -(-(proc_shape[1] + out_sz) // 256) * 256
         dt = (torch.float16 if self.pred_map_dtype == np.float16
               else torch.float32)
-        self._pred_dev = torch.zeros((bh, bw, out_ch), dtype=dt,
-                                     device=self.device)
+        if self.mesh is None:
+            self._stripe = None
+            self._pred_dev = torch.zeros((bh, bw, out_ch), dtype=dt,
+                                         device=self.device)
+        else:
+            halo = _STRIPE_HALO
+            assert halo >= out_sz, (halo, out_sz)
+            s_rows = -(-(-(-bh // len(self.mesh))) // 256) * 256
+            self._stripe = (s_rows, halo)
+            self._pred_dev = [torch.zeros((s_rows + 2 * halo, bw, out_ch),
+                                          dtype=dt, device=dev)
+                              for dev in self.mesh]
         self._pred_dev_mode = True
 
     def _get_raw_prediction(self, chunk_info, patch_info):
@@ -319,8 +483,11 @@ class WSIInferManager(base.InferManagerBase):
         finally:
             write_q.put(None)
             wt.join()
-        if self._pred_dev_mode and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self._pred_dev_mode:
+            for dev in (self.mesh.devices if self.mesh is not None
+                        else (self.device,)):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
 
     def _boxes_touch_tissue(self, scaled_boxes):
         """Tissue-overlap test of many boxes through a summed-area table
@@ -396,11 +563,15 @@ class WSIInferManager(base.InferManagerBase):
         """Batched, pipelined device post-processing of `boxes`.
 
         Boxes are grouped by canonical window shape and sent to the device
-        `batch` windows at a time, with `inflight` batches queued ahead of
-        the host. The extraction of instances runs on a pool; the
-        callbacks run in order, one batch at a time. Returns the number
-        of window batches."""
+        `batch` windows at a time (under a mesh `batch` a slot, each slot
+        post-processing its consecutive shard), with `inflight` batches
+        queued ahead of the host. The extraction of instances runs on a
+        pool; the callbacks run in order, one batch at a time. Returns
+        the number of window batches and the seconds taken."""
         start = time.perf_counter()
+        per_slot = batch
+        if self.mesh is not None:
+            batch *= len(self.mesh)
         pred_map = (None if self._pred_dev_mode
                     else np.load(self._pred_map_path, mmap_mode="r"))
         groups: Dict[tuple, list] = {}
@@ -420,11 +591,11 @@ class WSIInferManager(base.InferManagerBase):
                    for i in range(0, len(idxs), batch)]
 
         def finalize(item):
-            idxs, inst_pull, nlab, geoms, tps = item
-            _warn_u16_overflow(nlab)
-            inst_host = _host(inst_pull)
-            if tps is not None and not isinstance(tps, list):
-                tp_host = _host(tps)
+            idxs, inst_pulls, nlabs, geoms, tps, tp_pulls = item
+            _warn_u16_overflow(nlabs)
+            inst_host = _host_cat(inst_pulls)
+            if tp_pulls is not None:
+                tp_host = _host_cat(tp_pulls)
                 tps = [tp_host[k, g[0]:g[1], g[2]:g[3]].astype(np.int32)
                        for k, g in enumerate(geoms)]
 
@@ -457,9 +628,15 @@ class WSIInferManager(base.InferManagerBase):
                 y0, y1, x0, x1 = geom
                 tps.append(window[..., 0].astype(np.int32)[y0:y1, x0:x1]
                            if typed else None)
-            return (torch.from_numpy(np.stack(wins)).to(self.device),
-                    torch.from_numpy(np.stack(valids)).to(self.device),
-                    geoms, tps)
+            wins = torch.from_numpy(np.stack(wins))
+            valids = torch.from_numpy(np.stack(valids))
+            if self.mesh is None:
+                return [(wins.to(self.device), valids.to(self.device))], \
+                    geoms, tps
+            shards = [(w, v) for w, v in zip(
+                shard_batch(self.mesh, wins, per_slot),
+                shard_batch(self.mesh, valids, per_slot)) if len(w)]
+            return shards, geoms, tps
 
         def dispatch(shape, sub, staged):
             if self._pred_dev_mode:
@@ -469,15 +646,20 @@ class WSIInferManager(base.InferManagerBase):
                     (wy, wx), _, _, geom = self._window_geom(tl, br)
                     starts.append((wy, wx))
                     geoms.append(geom)
-                inst, nlab, tp = self._pp_windows(shape, starts, geoms)
-                tps = _to_host_async(tp) if typed else [None] * len(sub)
+                outs = self._pp_windows(shape, starts, geoms, per_slot)
+                tps, tp_pulls = [None] * len(sub), None
+                if typed:
+                    tp_pulls = [_to_host_async(tp) for _, _, tp in outs]
             else:
-                wins, valids, geoms, tps = staged
-                inst, nlab = self._post_proc(wins, valids)
-            # start the label pull now; the host reads it `inflight`
+                (shards, geoms, tps), tp_pulls = staged, None
+                outs = []
+                for wins, valids in shards:
+                    self.n_window_shards += 1
+                    outs.append(self._post_proc(wins, valids))
+            # start the label pulls now; the host reads them `inflight`
             # batches later
-            return (sub, _to_host_async(inst.to(torch.int32)), nlab, geoms,
-                    tps)
+            return (sub, [_to_host_async(o[0].to(torch.int32)) for o in outs],
+                    [o[1] for o in outs], geoms, tps, tp_pulls)
 
         n_fin = getattr(self, "finalize_workers", 0) or min(
             8, os.cpu_count() or 1)
@@ -512,14 +694,15 @@ class WSIInferManager(base.InferManagerBase):
     def post_process_phases(self):
         """The 3 phases over the slide's stitched prediction: full tiles,
         then boundary strips, then 4-corner crosses, each box kept when
-        it touches tissue. Sets `n_window_batches`; returns the seconds
-        of each phase."""
+        it touches tissue. Sets `n_window_batches` and `n_window_shards`
+        (the tail's calls: one a batch on one device, one a non-empty
+        slot shard under a mesh); returns the seconds of each phase."""
         grids = wsi_tile_grids(self.wsi_proc_shape,
                                np.array([self.tile_shape] * 2),
                                self.ambiguous_size)
         callbacks = (self._cb_normal_tile, self._cb_fixing_tile,
                      self._cb_fixing_tile)
-        self.n_window_batches = 0
+        self.n_window_batches = self.n_window_shards = 0
         secs = []
         for k, (grid, cb) in enumerate(zip(grids, callbacks), 1):
             n, sec = self._dispatch_post_processing(
@@ -567,12 +750,15 @@ class WSIInferManager(base.InferManagerBase):
         proc_shape = tuple(int(v) for v in self.wsi_proc_shape)
         pred_bytes = (proc_shape[0] * proc_shape[1] * out_ch
                       * self.pred_map_dtype.itemsize)
-        self._pred_dev_mode = pred_bytes <= self.hbm_pred_budget
+        # the budget is a slot's: a mesh holds the buffer row-striped
+        slots = len(self.mesh) if self.mesh is not None else 1
+        self._pred_dev_mode = pred_bytes <= self.hbm_pred_budget * slots
         if self._pred_dev_mode:
             self._alloc_pred_dev(out_ch)
             self._pred_map_path = None
-            logger.info("pred map resident on %s (%.2f GB)", self.device,
-                        pred_bytes / 2**30)
+            logger.info("pred map resident on %s (%.2f GB%s)", self.device,
+                        pred_bytes / 2**30,
+                        f", striped over {slots} slots" if slots > 1 else "")
         else:
             self._pred_dev = None
             self._pred_map_path = f"{self.cache_path}/pred_map.npy"
@@ -709,3 +895,91 @@ class WSIInferManager(base.InferManagerBase):
                 self._pred_dev = None  # free device memory even on failure
         shutil.rmtree(self.cache_path, ignore_errors=True)
         return written
+
+
+def _dryrun_striped_once(n_devices: int, pred: np.ndarray, shape,
+                         devices=None):
+    """Scatter a pre-built float16 (np, hv_x, hv_y) prediction map into
+    the striped (n_devices > 1) or single-device pred buffer, in forward
+    batches of 8 patch outputs a slot, and run all 3 post-proc phases
+    with 128^2 tiles. `devices` (default: the CUDA devices) lists the
+    devices of the slots and may repeat one. Returns (inst_map, the set
+    of instance ids)."""
+    from ..models.hovernet import HoVerNetConfig
+
+    cfg = HoVerNetConfig(mode="fast", nr_types=None, width=8)
+    out_sz = cfg.patch_output_shape
+    ys = list(range(0, shape[0], out_sz))
+    xs = list(range(0, shape[1], out_sz))
+    padded = np.zeros((ys[-1] + out_sz, xs[-1] + out_sz, 3), np.float16)
+    padded[:shape[0], :shape[1]] = pred
+    coords = np.array([(y, x) for y in ys for x in xs], np.int32)
+    patches = torch.from_numpy(np.stack(
+        [padded[y:y + out_sz, x:x + out_sz] for y, x in coords]))
+
+    mesh = make_mesh(n_devices, devices)
+    mgr = WSIInferManager.__new__(WSIInferManager)
+    mgr.cfg = cfg
+    mgr.nr_types = None
+    mgr.tile_shape = 128
+    mgr.ambiguous_size = 32
+    mgr.pred_map_dtype = np.dtype("float16")
+    mgr.mesh = mesh if n_devices > 1 else None
+    mgr.device = mesh[0]
+    mgr.wsi_proc_shape = np.array(shape)
+    mgr.wsi_mask = np.ones((30, 26), np.uint8)
+    mgr.wsi_inst_info = {}
+    mgr.wsi_inst_map = np.zeros(shape, np.int32)
+    mgr._alloc_pred_dev(3)
+    bs = 8 * n_devices
+    for i in range(0, len(coords), bs):
+        if mgr.mesh is None:
+            scatter_patches(mgr._pred_dev, patches[i:i + bs].to(mgr.device),
+                            coords[i:i + bs])
+        else:
+            shards = [t for t in shard_batch(mesh, patches[i:i + bs], 8)
+                      if len(t)]
+            mgr._scatter_striped(shards, coords[i:i + bs])
+    mgr.post_process_phases()
+    return mgr.wsi_inst_map.copy(), set(mgr.wsi_inst_info.keys())
+
+
+def dryrun_striped_infer(n_devices: int, devices=None) -> dict:
+    """One striped scatter and window-gather round over an n-slot mesh on
+    a 300x260 map of 40 discs: the striped path runs (all_gather scatter,
+    psum_scatter window reads, the tail on each slot's device) and gives
+    the single-device resident path's instance map bit for bit and the
+    same instance ids. `devices` as in `_dryrun_striped_once`; the
+    single-device run takes the first. Returns {"n_instances": int}."""
+    from ..ops.targets import gen_instance_hv_map
+
+    rng = np.random.default_rng(3)
+    shape = (300, 260)
+    inst_gt = np.zeros(shape, np.int32)
+    k = 1
+    for _ in range(40):
+        cy = int(rng.integers(10, shape[0] - 10))
+        cx = int(rng.integers(10, shape[1] - 10))
+        r = int(rng.integers(4, 8))
+        yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
+        m = (yy ** 2 + xx ** 2) <= r * r
+        sub = inst_gt[cy - r:cy + r + 1, cx - r:cx + r + 1]
+        sub[m & (sub == 0)] = k
+        k += 1
+    hv = gen_instance_hv_map(inst_gt, shape)
+    pred = np.dstack([(inst_gt > 0).astype(np.float32),
+                      hv[..., 0], hv[..., 1]]).astype(np.float16)
+
+    inst_n, keys_n = _dryrun_striped_once(n_devices, pred, shape, devices)
+    inst_1, keys_1 = _dryrun_striped_once(
+        1, pred, shape, None if devices is None else devices[:1])
+    if not np.array_equal(inst_n, inst_1) or keys_n != keys_1:
+        raise AssertionError(
+            f"striped ({n_devices} slots) and single-device instance maps "
+            f"differ: {len(keys_n)} vs {len(keys_1)} instances")
+    n = len(keys_n)
+    if n <= 10:
+        raise AssertionError(f"striped dryrun found only {n} instances")
+    logger.info("dryrun_striped_infer: striped == single-device (bit-exact "
+                "instance map, %d instances)", n)
+    return {"n_instances": n}

@@ -255,11 +255,19 @@ def test_host_manager_matches_jax(tmp_path):
 
 
 def test_n_devices_above_one_exits():
+    """`--n_devices 2` is accepted (multi-device inference is ported,
+    tests/test_torch_multidevice.py): the CLI exits with an error only on
+    what it cannot run, here the absent checkpoint, and without a GPU the
+    default CUDA device (there is no fallback to the CPU)."""
     from hover_net_tpu_torch.cli.run_infer import main as port_main
 
-    with pytest.raises(SystemExit, match="--n_devices > 1: not ported"):
-        port_main(["--model_path", "absent.tar", "--n_devices", "2", "tile",
-                   "--input_dir", "in", "--output_dir", "out"])
+    argv = ["--model_path", "absent.tar", "--n_devices", "2", "tile",
+            "--input_dir", "in", "--output_dir", "out"]
+    with pytest.raises(FileNotFoundError):
+        port_main(["--device", "cpu"] + argv)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            port_main(argv)
 
 
 def test_port_imports_no_jax():

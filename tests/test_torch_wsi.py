@@ -285,7 +285,13 @@ def test_wsi_cli_on_cpu(slide, tmp_path):
     with open(out / "json" / "sample.json") as f:
         assert set(json.load(f)) == {"mag", "nuc"}
     assert os.path.exists(out / "mask" / "sample.png")
-    with pytest.raises(SystemExit):
-        main(["--model_path", tar, "--n_devices", "2", "--device", "cpu",
-              "wsi", "--input_dir", str(root / "in"), "--output_dir",
-              str(out)])
+    # --n_devices 2 on the CPU runs on its one device (clamped) and, the
+    # slide's json being written, skips it (resume)
+    mtime = os.path.getmtime(out / "json" / "sample.json")
+    mgr = main(["--model_path", tar, "--width", str(WIDTH), "--n_devices",
+                "2", "--device", "cpu", "wsi", "--input_dir",
+                str(root / "in"), "--output_dir",
+                str(out), "--cache_path", str(tmp_path / "cache"),
+                "--save_mask"])
+    assert mgr.devices == (torch.device("cpu"),) and mgr.mesh is None
+    assert os.path.getmtime(out / "json" / "sample.json") == mtime
