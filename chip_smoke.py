@@ -109,17 +109,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    striped buffer and from the single-device buffer: identical instance
    maps and instance ids, K1 launched once per window-batch shard (as
    often as the single-device run's batches, in fewer batches); (b)
-   phase 7's pseudo-slide through `WSIInferManager(force_mesh=True,
-   devices=["cuda:0"] * 2)` and the single-device manager, HNT_FUSED_ENC
-   unset: the identical stitched prediction, json nuclei and instance
-   map, the same forward batches, K1 once per shard; (c) phase 4's three
+   phase 7's pseudo-slide through `WSIInferManager(devices=["cuda:0"] *
+   2)` and the single-device manager, once with HNT_FUSED_ENC unset and
+   once set: the identical stitched prediction, json nuclei and instance
+   map, the same forward batches, K1 once per shard, K3 4 times per
+   forward shard with HNT_FUSED_ENC set; (c) phase 4's three
    untyped 1000^2 images through `TileInferManager(devices=["cuda:0"] *
-   2)`: the json of phase 4, K1 once per image. (a) and (b) run single,
-   striped, striped, single, and print each run's seconds by phase (the
+   2)` (a dispatch thread a slot) and the single-device manager: the
+   json of phase 4, K1 once per image. Each part runs single, striped
+   (2 or 4 slots), striped, single, and prints each run's seconds (the
    striping overhead on one card);
 14. prints the kernel table as one JSON line (K1's times at the WSI
    window batch; each kernel's bound from its inputs and outputs at the
-   timed shape; K1's launches are phase 7's and phase 13's), the card
+   timed shape; the launches of K1 and K3 are phase 7's and phase
+   13's), the card
    line, and last {"ok": true, "device": {...}}.
 
 Outputs go to build/chip_smoke/ in the checkout.
@@ -1072,31 +1075,6 @@ MESH_TILE = 1024   # its post-proc tile: 16 windows a phase-1 batch, so
 TURNS = ("single", "striped", "striped", "single")
 
 
-def fill_pred_buffer(mgr, padded, coords):
-    """Scatter the patch outputs of `padded` at `coords` into `mgr`'s
-    device pred buffer as the chunk loop does: forward batches of
-    K3_BATCH patches a slot, striped through the mesh when there is
-    one."""
-    import torch
-
-    from hover_net_tpu_torch.infer.wsi import scatter_patches
-    from hover_net_tpu_torch.parallel.mesh import shard_batch
-
-    out_sz = mgr.cfg.patch_output_shape
-    slots = len(mgr.mesh) if mgr.mesh is not None else 1
-    bs = K3_BATCH * slots
-    for i in range(0, len(coords), bs):
-        c = coords[i:i + bs]
-        outs = torch.from_numpy(np.stack(
-            [padded[y:y + out_sz, x:x + out_sz] for y, x in c]))
-        if mgr.mesh is None:
-            scatter_patches(mgr._pred_dev, outs.to(mgr.device), c)
-        else:
-            shards = [t for t in shard_batch(mgr.mesh, outs, K3_BATCH)
-                      if len(t)]
-            mgr._scatter_striped(shards, c)
-
-
 def stitched_pred(mgr):
     """The slide's stitched prediction in `mgr`'s device pred buffer, on
     the first slot's device: the buffer cropped to the slide, or under a
@@ -1115,7 +1093,9 @@ def striped_post_proc(tar, work, card, device="cuda"):
     """Phase 13 (a): the 4096^2 prediction map of phase 8 through the 3
     phases from a MESH_SLOTS-slot striped buffer on cuda:0 and from the
     single-device buffer, in TURNS. Returns K1's launches."""
-    from hover_net_tpu_torch.infer.wsi import WSIInferManager
+    import torch
+
+    from hover_net_tpu_torch.infer.wsi import WSIInferManager, fill_pred_dev
     from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
 
     pred = synth_pred(synth_inst(SLIDE, SLIDE, SLIDE_NUCLEI, seed=8)
@@ -1125,6 +1105,8 @@ def striped_post_proc(tar, work, card, device="cuda"):
     padded = np.zeros((grid[-1] + out_sz,) * 2 + (3,), np.float16)
     padded[:SLIDE, :SLIDE] = pred
     coords = np.array([(y, x) for y in grid for x in grid], np.int32)
+    outs = torch.from_numpy(np.stack(
+        [padded[y:y + out_sz, x:x + out_sz] for y, x in coords]))
     res, launches = [], 0
     for name in TURNS:
         devices = [device] * (MESH_SLOTS if name == "striped" else 1)
@@ -1138,7 +1120,7 @@ def striped_post_proc(tar, work, card, device="cuda"):
         mgr.wsi_inst_info = {}
         mgr.wsi_inst_map = np.zeros((SLIDE, SLIDE), np.int32)
         mgr._alloc_pred_dev(3)
-        fill_pred_buffer(mgr, padded, coords)
+        fill_pred_dev(mgr, outs, coords, K3_BATCH)
         proc_tail.launches = 0
         t0 = time.perf_counter()
         secs = mgr.post_process_phases()
@@ -1175,27 +1157,46 @@ def striped_post_proc(tar, work, card, device="cuda"):
 
 def striped_slide(tar, dirs, work, card, device="cuda"):
     """Phase 13 (b): phase 7's pseudo-slide through the 2-slot mesh
-    manager and the single-device manager in TURNS, HNT_FUSED_ENC unset:
-    the
-    stitched prediction (before post-processing), the json and the
-    instance map must be identical. Returns K1's launches."""
+    manager and the single-device manager in TURNS, once with
+    HNT_FUSED_ENC unset (cuDNN encoder) and once set (K3 on every
+    slot): the stitched prediction (before post-processing), the json
+    and the instance map must be identical to the first single-device
+    run's of the same encoder. Returns the launches of K1 and K3."""
+    if os.environ.get("HNT_FUSED_ENC"):
+        raise AssertionError("HNT_FUSED_ENC is set")
+    k1 = k3 = 0
+    for fused in (False, True):
+        if fused:
+            os.environ["HNT_FUSED_ENC"] = "1"
+        try:
+            launches = striped_slide_turns(tar, dirs, work, card, device,
+                                           fused)
+        finally:
+            os.environ.pop("HNT_FUSED_ENC", None)
+        k1 += launches[0]
+        k3 += launches[1]
+    return k1, k3
+
+
+def striped_slide_turns(tar, dirs, work, card, device, fused):
+    """Phase 13 (b) with one encoder (K3 when `fused`): the runs in TURNS
+    and their comparison. Returns the launches of K1 and K3."""
     import torch
 
     from hover_net_tpu_torch.infer.wsi import WSIInferManager
+    from hover_net_tpu_torch.ops.fused_block_cuda import fused_block_apply
     from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
 
-    if os.environ.get("HNT_FUSED_ENC"):
-        raise AssertionError("HNT_FUSED_ENC is set")
-    res, launches = [], 0
+    enc = "K3" if fused else "cuDNN"
+    res, launches, k3_launches = [], 0, 0
     for turn, name in enumerate(TURNS):
-        extra = (dict(force_mesh=True, devices=[device] * 2)
-                 if name == "striped" else {})
-        out = os.path.join(work, f"mesh_out_{turn}_{name}")
+        devices = [device] * (2 if name == "striped" else 1)
+        out = os.path.join(work, f"mesh_out_{enc}_{turn}_{name}")
         mgr = WSIInferManager(
             model_path=tar, mode="fast", nr_types=None, width=64,
-            batch_size=K3_BATCH, device=device, chunk_shape=2048,
+            batch_size=K3_BATCH, devices=devices, chunk_shape=2048,
             tile_shape=2048, ambiguous_size=128, proc_mag=40,
-            cache_path=os.path.join(work, f"mesh_cache_{turn}"), **extra)
+            cache_path=os.path.join(work, f"mesh_cache_{enc}_{turn}"))
         preds = []
         phases = mgr.post_process_phases
 
@@ -1205,94 +1206,109 @@ def striped_slide(tar, dirs, work, card, device="cuda"):
 
         mgr.post_process_phases = keep_pred_then_phases
         proc_tail.launches = 0
+        fused_block_apply.launches = 0
         t0 = time.perf_counter()
         written = mgr.process_wsi_list(dirs["slides"], out,
                                        input_mask_dir=dirs["masks"])
         wall = time.perf_counter() - t0
-        k1 = proc_tail.launches
+        k1, k3 = proc_tail.launches, fused_block_apply.launches
         launches += k1
+        k3_launches += k3
         if written != 1:
-            raise AssertionError(f"mesh (b) {name}: no json written")
+            raise AssertionError(f"mesh (b) {enc} {name}: no json written")
         with open(os.path.join(out, "slide.json")) as f:
             nuc = json.load(f)["nuc"]
         res.append((name, nuc, np.array(mgr.wsi_inst_map),
                     mgr.n_forward_batches, preds[0]))
-        log(f"mesh (b) {name}: {SLIDE}^2 slide in {wall:.3f} s wall, "
+        log(f"mesh (b) {enc} {name}: {SLIDE}^2 slide in {wall:.3f} s wall, "
             f"{mgr.n_forward_batches} forward batches, "
             f"{mgr.n_window_batches} window batches, {mgr.n_window_shards} "
-            f"shards, K1 launches {k1}, {len(nuc)} nuclei; seconds "
+            f"shards, K1 launches {k1}, K3 launches {k3}, {len(nuc)} "
+            "nuclei; seconds "
             + ", ".join(f"{k} {v:.3f}" for k, v in
                         mgr.timings["slide"].items()) + f" ({card})")
         if k1 != mgr.n_window_shards or k1 == 0:
-            raise AssertionError(f"mesh (b) {name}: K1 ran {k1} times for "
-                                 f"{mgr.n_window_shards} shards")
+            raise AssertionError(f"mesh (b) {enc} {name}: K1 ran {k1} times "
+                                 f"for {mgr.n_window_shards} shards")
+        if k3 != (4 * mgr.n_forward_batches if fused else 0) \
+                or mgr.n_forward_batches == 0:
+            raise AssertionError(f"mesh (b) {enc} {name}: K3 ran {k3} times "
+                                 f"for {mgr.n_forward_batches} forward "
+                                 "shards")
         del mgr
     _, nuc_1, map_1, fwd_1, pred_1 = res[0]
     if not torch.isfinite(pred_1).all():
-        raise AssertionError("mesh (b): the prediction is not finite")
+        raise AssertionError(f"mesh (b) {enc}: the prediction is not finite")
     for name, nuc_n, map_n, fwd_n, pred_n in res[1:]:
         if not torch.equal(pred_n, pred_1) or nuc_n != nuc_1 \
                 or not np.array_equal(map_n, map_1) or fwd_n != fwd_1:
-            raise AssertionError(f"mesh (b): a {name} run differs from the "
-                                 "first single-device run")
-    log(f"mesh (b): 2 slots == one device, bit for bit: the stitched "
+            raise AssertionError(f"mesh (b) {enc}: a {name} run differs "
+                                 "from the first single-device run")
+    log(f"mesh (b) {enc}: 2 slots == one device, bit for bit: the stitched "
         f"{tuple(pred_1.shape)} prediction (max |value| "
         f"{float(pred_1.abs().max()):.3f}), {len(nuc_1)} nuclei")
-    return launches
+    return launches, k3_launches
 
 
 def round_robin_tiles(work, card, device="cuda"):
     """Phase 13 (c): phase 4's untyped images through a 2-slot tile
-    manager on cuda:0; its json must be phase 4's. Returns K1's
-    launches."""
+    manager on cuda:0 (a dispatch thread a slot) and a single-device one,
+    in TURNS; every json must be phase 4's. Returns K1's launches."""
     from hover_net_tpu_torch.infer.tile import TileInferManager
     from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
 
-    mgr = TileInferManager(
-        model_path=os.path.join(work, "untyped.tar"), mode="fast",
-        nr_types=None, width=64,
-        type_info_path=os.path.join(ROOT, "type_info.json"),
-        devices=[device] * 2)
     src = os.path.join(work, "in_untyped")
-    out = os.path.join(work, "mesh_out_tiles")
-    proc_tail.launches = 0
-    t0 = time.perf_counter()
-    written = mgr.process_file_list(src, out, save_format="json")
-    wall = time.perf_counter() - t0
-    k1 = proc_tail.launches
     names = sorted(os.listdir(src))
-    if written != len(names) or k1 != len(names) or mgr._rr != len(names):
-        raise AssertionError(f"mesh (c): {written} images written, K1 ran "
-                             f"{k1} times, {mgr._rr} dispatched")
-    for name in names:
-        stem = os.path.splitext(name)[0]
-        with open(os.path.join(out, "json", f"{stem}.json")) as f:
-            got = json.load(f)
-        with open(os.path.join(work, "out_untyped", "json",
-                               f"{stem}.json")) as f:
-            want = json.load(f)
-        if got != want:
-            raise AssertionError(f"mesh (c): {stem}.json differs from "
-                                 "phase 4's")
-    log(f"mesh (c): {written} images round-robin over 2 slots in "
-        f"{wall:.3f} s wall, K1 launches {k1}; json == phase 4's ({card})")
-    return k1
+    launches = 0
+    for turn, name in enumerate(TURNS):
+        mgr = TileInferManager(
+            model_path=os.path.join(work, "untyped.tar"), mode="fast",
+            nr_types=None, width=64,
+            type_info_path=os.path.join(ROOT, "type_info.json"),
+            devices=[device] * (2 if name == "striped" else 1))
+        out = os.path.join(work, f"mesh_out_tiles_{turn}")
+        proc_tail.launches = 0
+        t0 = time.perf_counter()
+        written = mgr.process_file_list(src, out, save_format="json")
+        wall = time.perf_counter() - t0
+        k1 = proc_tail.launches
+        launches += k1
+        if written != len(names) or k1 != len(names) \
+                or mgr._rr != len(names):
+            raise AssertionError(f"mesh (c) {name}: {written} images "
+                                 f"written, K1 ran {k1} times, {mgr._rr} "
+                                 "dispatched")
+        for fname in names:
+            stem = os.path.splitext(fname)[0]
+            with open(os.path.join(out, "json", f"{stem}.json")) as f:
+                got = json.load(f)
+            with open(os.path.join(work, "out_untyped", "json",
+                                   f"{stem}.json")) as f:
+                want = json.load(f)
+            if got != want:
+                raise AssertionError(f"mesh (c) {name}: {stem}.json "
+                                     "differs from phase 4's")
+        log(f"mesh (c) {name}: {written} images over "
+            f"{len(mgr.devices)} slot(s) in {wall:.3f} s wall, K1 launches "
+            f"{k1}; json == phase 4's ({card})")
+        del mgr
+    return launches
 
 
 def check_multi_device(work, dirs, card, device="cuda:0"):
-    """Phase 13: (a), (b) and (c), every slot on `device`. Returns K1's
-    launches in all three."""
+    """Phase 13: (a), (b) and (c), every slot on `device`. Returns the
+    launches of K1 in all three and of K3 in (b)."""
     import torch
 
     t0 = time.perf_counter()
     tar = os.path.join(work, "wsi.tar")
-    launches = striped_post_proc(tar, work, card, device)
+    k1 = striped_post_proc(tar, work, card, device)
     torch.cuda.empty_cache()
-    launches += striped_slide(tar, dirs, work, card, device)
+    k1_b, k3 = striped_slide(tar, dirs, work, card, device)
     torch.cuda.empty_cache()
-    launches += round_robin_tiles(work, card, device)
+    k1 += k1_b + round_robin_tiles(work, card, device)
     log(f"phase 13 in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return k1, k3
 
 
 # ------------------------------------------------------------ training
@@ -1775,7 +1791,9 @@ def main():
 
     check_evaluation(work, check_training(work))
     torch.cuda.empty_cache()
-    k1_launches += check_multi_device(work, dirs, card)
+    k1_mesh, k3_mesh = check_multi_device(work, dirs, card)
+    k1_launches += k1_mesh
+    k3_launches += k3_mesh
 
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda",

@@ -39,12 +39,11 @@ def _use_fused_enc(model: HoVerNet, device) -> bool:
             and torch.device(device).type == "cuda")
 
 
-def infer_output(model: HoVerNet, imgs: torch.Tensor,
-                 allow_fused_enc: bool = True) -> torch.Tensor:
+def infer_output(model: HoVerNet, imgs: torch.Tensor) -> torch.Tensor:
     """NHWC images [N, H, W, 3] (uint8 or float, 0..255) -> NHWC float32
     [N, h, w, C] head activations. Behind `_use_fused_enc` the encoder
-    runs as kernel K3, unless `allow_fused_enc` is False."""
-    if allow_fused_enc and _use_fused_enc(model, imgs.device):
+    runs as kernel K3."""
+    if _use_fused_enc(model, imgs.device):
         out = fused_forward(model, imgs)
     else:
         out = model(imgs.permute(0, 3, 1, 2))

@@ -8,14 +8,19 @@ returns the per-instance tables, and the host builds the json from them
 with the native contour tracer. Every map is post-processed whole, so
 the JAX package's seam guard has no counterpart here.
 
-Several devices (`n_devices`, or an explicit `devices` list that may
-repeat one) take successive images in turn, as the JAX manager's
-round-robin does: each image's whole pipeline (forward, energy, K1,
-tables) runs on its device with that device's model replica, up to
-3 images a device wait for their finalize, and the finalizes stay in
-input order. One thread dispatches, and it waits for each image's
-device work (K1's host reads, the stage timings) before the next: on
-distinct GPUs the images do not overlap yet.
+Several devices (`n_devices`, or an explicit `devices` list of slots
+that may repeat a device) take successive images in turn, as the JAX
+manager's round-robin does: each image's whole pipeline (forward,
+energy, K1, tables) runs on its slot's device with that device's model
+replica, up to 3 images a slot wait for their finalize, and the
+finalizes stay in input order. Each slot has its own dispatch thread:
+K1 reads host flags and the stage timings wait for the image's last
+event, so one dispatching thread would run the images of distinct GPUs
+one after another; with a thread a slot they overlap, and slots that
+share a device interleave their work on its stream. With one slot the
+main thread dispatches. torch.profiler records the CPU ops of the
+thread that starts it, so a `--profile_dir` trace of several slots
+lacks the dispatch threads' CPU ops (the kernels are in it).
 
 `device_post_proc=False` (the CLI's `--host_post_proc`) selects the host
 branch: the forward runs on the manager's first device, the stitched
@@ -34,7 +39,8 @@ import re
 import shutil
 import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
+from contextlib import ExitStack
 
 import cv2
 import numpy as np
@@ -79,15 +85,17 @@ class TileInferManager(base.InferManagerBase):
         self.patch_output_shape = self.cfg.patch_output_shape
         self.device_post_proc = device_post_proc
         self._pipelines = {}
-        self._rr = 0  # images dispatched: the next one's device
+        self._rr = 0  # images dispatched: the next one's slot
         self.timings = []
 
-    def _pipeline_for(self, grid, device):
-        """One pipeline per canonical grid class and device."""
-        if (grid, device) not in self._pipelines:
-            self._pipelines[grid, device] = make_tile_pipeline(
-                self.model_on(device), grid, batch=self.batch_size)
-        return self._pipelines[grid, device]
+    def _pipeline_for(self, grid, slot: int):
+        """One pipeline per canonical grid class and slot (a pipeline keeps
+        its last call's stage events, so two threads never share one)."""
+        if (grid, slot) not in self._pipelines:
+            self._pipelines[grid, slot] = make_tile_pipeline(
+                self.model_on(self.devices[slot]), grid,
+                batch=self.batch_size)
+        return self._pipelines[grid, slot]
 
     def _reflect_padded(self, img: np.ndarray):
         """(reflect-padded image, patch top-left coords, grid) of the exact
@@ -98,10 +106,17 @@ class TileInferManager(base.InferManagerBase):
                         mode="reflect")
         return padded, coords, grid
 
-    def predict_image_async(self, img: np.ndarray):
-        """Run one RGB uint8 image through the device pipeline on the next
-        device in turn. Returns (full, inst, n_labels, tp, tables) tensors
-        at canonical size and the device ms of each stage."""
+    def next_slot(self) -> int:
+        """The slot of the next image, in turn."""
+        slot = self._rr % len(self.devices)
+        self._rr += 1
+        return slot
+
+    def predict_image_async(self, img: np.ndarray, slot=None):
+        """Run one RGB uint8 image through the device pipeline of `slot`
+        (default: the next slot in turn). Returns (full, inst, n_labels,
+        tp, tables) tensors at canonical size and the device ms of each
+        stage."""
         src_h, src_w = img.shape[:2]
         win, step = self.patch_input_shape, self.patch_output_shape
         padded, coords, grid = self._reflect_padded(img)
@@ -116,9 +131,10 @@ class TileInferManager(base.InferManagerBase):
             xs = np.arange(0, cols * step, step, dtype=np.int32)
             yy, xx = np.meshgrid(ys, xs, indexing="ij")
             coords = np.stack([yy.ravel(), xx.ravel()], axis=-1)
-        device = self.devices[self._rr % len(self.devices)]
-        self._rr += 1
-        run = self._pipeline_for((rows, cols), device)
+        if slot is None:
+            slot = self.next_slot()
+        device = self.devices[slot]
+        run = self._pipeline_for((rows, cols), slot)
         out = run(torch.from_numpy(np.ascontiguousarray(padded)).to(device),
                   torch.from_numpy(coords.astype(np.int64)).to(device),
                   (src_h, src_w))
@@ -227,12 +243,13 @@ class TileInferManager(base.InferManagerBase):
                           save_qupath=False, save_raw_map=False,
                           save_format="all"):
         """save_format "all" writes mat/overlay/json[/qupath]; "json"
-        writes json[/qupath] from the device tables alone. The host
-        finalize and save of image k run on one worker thread while the
-        main thread runs the next images on the devices (up to 3 a device
-        wait for the worker); on the host branch each
-        image is predicted, post-processed and saved in turn on the main
-        thread. Returns the number of images written."""
+        writes json[/qupath] from the device tables alone. The main
+        thread reads the images and dispatches each (to its slot's
+        thread when there are several slots); the host finalize and save
+        run on one worker thread, in input order (up to 3 images a slot
+        wait for it). On the host
+        branch each image is predicted, post-processed and saved in turn
+        on the main thread. Returns the number of images written."""
         pattern = re.sub(r"([\[\]])", "[\\1]", f"{input_dir}/*")
         files = sorted(glob.glob(pattern))
         if not files:
@@ -248,9 +265,10 @@ class TileInferManager(base.InferManagerBase):
 
         n_failed = 0  # touched by the main thread and the one worker
 
-        def finalize_one(name, img, dev_out, stage_ms, t0):
+        def finalize_one(name, img, dispatched, t0):
             nonlocal n_failed
             try:
+                dev_out, stage_ms = dispatched.result()
                 t1 = time.perf_counter()
                 pred_map, inst_map, inst_info = self.finalize_prediction(
                     img, dev_out, pull_pred_map=save_raw_map,
@@ -269,7 +287,14 @@ class TileInferManager(base.InferManagerBase):
                 n_failed += 1
                 logger.exception("crash on %s", name)
 
-        with ThreadPoolExecutor(max_workers=1) as fin:
+        with ExitStack() as stack:
+            fin = stack.enter_context(ThreadPoolExecutor(max_workers=1))
+            dispatch = []  # the slots' dispatch threads
+            if len(self.devices) > 1 and self.device_post_proc:
+                for slot, device in enumerate(self.devices):
+                    self.model_on(device)  # the replicas are made here
+                    dispatch.append(stack.enter_context(ThreadPoolExecutor(
+                        max_workers=1, thread_name_prefix=f"slot{slot}")))
             futs = deque()  # one worker: finalizes stay in order
             for path in files + [None]:
                 if path is not None:
@@ -292,9 +317,16 @@ class TileInferManager(base.InferManagerBase):
                                         len(inst_info),
                                         time.perf_counter() - t0)
                             continue
-                        dev_out, stage_ms = self.predict_image_async(img)
+                        slot = self.next_slot()
+                        if dispatch:
+                            dispatched = dispatch[slot].submit(
+                                self.predict_image_async, img, slot)
+                        else:
+                            dispatched = Future()
+                            dispatched.set_result(
+                                self.predict_image_async(img, slot))
                         futs.append(fin.submit(finalize_one, name, img,
-                                               dev_out, stage_ms, t0))
+                                               dispatched, t0))
                     except Exception:
                         n_failed += 1
                         logger.exception("crash on %s", name)

@@ -19,9 +19,10 @@ Counterpart of hover_net_tpu/infer/wsi.py, with its structure:
   renumber and stitch run in order;
 - resume: a slide whose json exists is skipped.
 
-Several devices (`n_devices` > 1, an explicit `devices` list, or
-`force_mesh`) build a mesh (parallel/mesh.py), and the JAX manager's
-mesh branches run in one process:
+Several devices (`n_devices` > 1, or an explicit `devices` list of more
+than one slot, which may repeat a device) build a mesh
+(parallel/mesh.py), and the JAX manager's mesh branches run in one
+process:
 
 - each forward batch is `batch_size` times the slots, split into
   consecutive `batch_size` shards, so that every shard is a batch the
@@ -32,7 +33,7 @@ mesh branches run in one process:
   owns `s_rows` core rows plus `_STRIPE_HALO` landing rows on either
   side, and the budget is `hbm_pred_budget` a slot; the batch's outputs
   are gathered to every slot, which writes the patches that touch its
-  core rows (`_scatter_striped`);
+  core rows (`_scatter`);
 - a window batch is `batch` windows a slot: each slot cuts every
   window's overlap with its core rows, a `psum_scatter` hands slot d its
   shard fully assembled, and the post-processing tail (K1 on a GPU) runs
@@ -40,10 +41,11 @@ mesh branches run in one process:
   is split over the slots the same way. Core rows are disjoint, so the
   sum adds exact zeros and the instance map is the single-device path's,
   bit for bit;
-- the forward under a mesh keeps the standard (cuDNN) encoder, as the
-  JAX manager does, where GSPMD cannot partition the Pallas encoder;
-  here nothing forbids K3 on a slot's device, and lifting the rule is an
-  open item.
+- each shard's forward runs whole on one device, so `_use_fused_enc`
+  decides there as on one device: with HNT_FUSED_ENC set the encoder is
+  kernel K3 on every slot. The JAX manager keeps the standard encoder
+  under a mesh, where GSPMD cannot partition the Pallas call; one
+  process that runs each shard on its own device has no such limit.
 
 Differences from the JAX manager, all of them deliberate:
 
@@ -56,7 +58,9 @@ Differences from the JAX manager, all of them deliberate:
   `scatter_patches` keeps the clamp of `lax.dynamic_update_slice` all
   the same; the striped scatter writes a patch only into the stripes
   whose core rows it touches, where the JAX scatter parks the others in
-  the dead top halo.
+  the dead top halo;
+- no `force_mesh`: a `devices` list that repeats one device builds the
+  mesh on one card, which is what the JAX flag was for.
 """
 
 from __future__ import annotations
@@ -87,6 +91,7 @@ from ..ops import cc_np
 from ..ops.post_proc_device import compact_labels_u16, proc_np_hv_batch
 from ..ops.post_proc_host import extract_instance_info
 from ..parallel.mesh import (
+    Mesh,
     all_gather,
     make_mesh,
     psum_scatter,
@@ -190,11 +195,11 @@ class WSIInferManager(base.InferManagerBase):
     def __init__(self, *args, chunk_shape=10000, tile_shape=2048,
                  ambiguous_size=128, proc_mag=40, cache_path="cache",
                  pred_map_dtype="float16", hbm_pred_budget: int = 4 << 30,
-                 force_mesh: bool = False, **kwargs):
+                 **kwargs):
         """`n_devices`, `devices` and `device` pick the devices
-        (`base.InferManagerBase`); more than one builds the mesh, and so
-        does `force_mesh` on one device (to price the striped path
-        against the single-device one on one card)."""
+        (`base.InferManagerBase`); more than one slot builds the mesh
+        (`devices=["cuda:0"] * 2` prices the striped path against the
+        single-device one on one card)."""
         super().__init__(*args, **kwargs)
         self.chunk_shape = int(chunk_shape)
         self.tile_shape = int(tile_shape)
@@ -214,7 +219,7 @@ class WSIInferManager(base.InferManagerBase):
         # per slide: seconds of inference, of each post-proc phase, of
         # the json; and the forward and window batches of the last slide
         self.mesh = (make_mesh(devices=self.devices)
-                     if len(self.devices) > 1 or force_mesh else None)
+                     if len(self.devices) > 1 else None)
         self.timings: Dict[str, Dict[str, float]] = {}
         self.n_forward_batches = 0
         self.n_window_batches = 0
@@ -222,20 +227,17 @@ class WSIInferManager(base.InferManagerBase):
 
     # ------------------------------------------------------- device fns
 
-    def _forward_batch(self, chunk_img: torch.Tensor, coords: torch.Tensor
-                       ) -> torch.Tensor:
-        """Gather + forward one batch of patches of a chunk on the chunk
-        image's device, with that device's model; the outputs are cast to
-        the pred map's dtype there. Under a mesh the encoder is the
-        standard one (`allow_fused_enc`), as in the JAX manager."""
+    def _forward_batch(self, chunk_img: torch.Tensor, coords: torch.Tensor,
+                       device: torch.device) -> torch.Tensor:
+        """Gather + forward one batch of patches of a chunk (pushed to
+        `device`) with `device`'s model; the outputs are cast to the pred
+        map's dtype there."""
         out_dtype = (torch.float16 if self.pred_map_dtype == np.float16
                      else torch.float32)
         patches = extract_patches(chunk_img, coords,
                                   self.cfg.patch_input_shape)
         with torch.no_grad():
-            return infer_output(self.model_on(chunk_img.device), patches,
-                                allow_fused_enc=self.mesh is None
-                                ).to(out_dtype)
+            return infer_output(self.model_on(device), patches).to(out_dtype)
 
     def _run_chunk(self, chunk_img, patch_coords: np.ndarray,
                    out_coords: np.ndarray | None = None):
@@ -249,7 +251,7 @@ class WSIInferManager(base.InferManagerBase):
         (out_coords given): the outputs scatter into the device pred
         buffer instead, and nothing crosses to the host."""
         bs = self.batch_size
-        slots = self.mesh if self.mesh is not None else (self.device,)
+        slots = self._slots()
         imgs = self._push_chunk(chunk_img)
         if self.mesh is None:
             imgs = {self.device: imgs}
@@ -263,17 +265,17 @@ class WSIInferManager(base.InferManagerBase):
                 if lo == hi:
                     break
                 shards.append(self._forward_batch(
-                    imgs[dev], coords[dev][i + lo:i + hi]))
+                    imgs[dev], coords[dev][i + lo:i + hi], dev))
                 self.n_forward_batches += 1
             if out_coords is None:
                 outs += [_to_host_async(o) for o in shards]
-            elif self.mesh is None:
-                scatter_patches(self._pred_dev, shards[0],
-                                out_coords[i:i + bs])
             else:
-                self._scatter_striped(
-                    shards, out_coords[i:i + bs * len(slots)])
+                self._scatter(shards, out_coords[i:i + bs * len(slots)])
         return outs
+
+    def _slots(self) -> Mesh:
+        """The mesh, or one slot on the manager's device."""
+        return self.mesh if self.mesh is not None else Mesh((self.device,))
 
     def _push_chunk(self, chunk_img):
         """Host->device push of one chunk image: a tensor, or under a mesh
@@ -287,24 +289,30 @@ class WSIInferManager(base.InferManagerBase):
             return img.to(self.device)
         return dict(zip(self.mesh, replicate(img, self.mesh)))
 
-    def _scatter_striped(self, shards, coords: np.ndarray) -> None:
-        """Under a mesh: gather a batch's output shards to every slot;
-        each slot writes, in order, the patches that touch its core rows
+    def _scatter(self, shards, coords: np.ndarray) -> None:
+        """Write a batch's output shards (one a slot, in slot order; the
+        last slots' may be missing) at their top-lefts `coords` into the
+        device pred buffer. Under a mesh the shards are gathered to every
+        slot, and each slot writes the patches that touch its core rows
         at row `oy - row0 + halo` of its stripe (a straddling patch lands
         whole in both neighbours; halo copies are never read)."""
+        if self.mesh is None:
+            scatter_patches(self._pred_dev, shards[0], coords)
+            return
         s_rows, halo = self._stripe
+        coords = np.asarray(coords, np.int64)
+        ph = shards[0].shape[1]
         gathered = all_gather(
             shards + [shards[0][:0]] * (len(self.mesh) - len(shards)),
             self.mesh)
         for d, (buf, outs) in enumerate(zip(self._pred_dev, gathered)):
             row0 = d * s_rows
-            ph, pw = outs.shape[1], outs.shape[2]
-            outs = outs.to(buf.dtype)
-            for k, (oy, ox) in enumerate(np.asarray(coords, np.int64)):
-                if oy < row0 + s_rows and oy + ph > row0 \
-                        and ox + pw <= buf.shape[1]:
-                    y = oy - row0 + halo
-                    buf[y:y + ph, ox:ox + pw] = outs[k]
+            hit = np.flatnonzero((coords[:, 0] < row0 + s_rows)
+                                 & (coords[:, 0] + ph > row0))
+            if len(hit):
+                scatter_patches(
+                    buf, outs[torch.from_numpy(hit).to(outs.device)],
+                    coords[hit] - (row0 - halo, 0))
 
     def _post_proc(self, seg: torch.Tensor, valid: torch.Tensor):
         """[B, H, W, 3] windows + [B, H, W] valid masks -> (uint16
@@ -897,6 +905,20 @@ class WSIInferManager(base.InferManagerBase):
         return written
 
 
+def fill_pred_dev(mgr: WSIInferManager, outs: torch.Tensor,
+                  coords: np.ndarray, per_slot: int) -> None:
+    """Scatter patch outputs [K, h, w, C] at top-lefts `coords` into
+    `mgr`'s device pred buffer as the chunk loop does, without a forward:
+    batches of `per_slot` outputs a slot, sharded over the mesh when
+    there is one."""
+    slots = mgr._slots()
+    bs = per_slot * len(slots)
+    for i in range(0, len(coords), bs):
+        shards = [t for t in shard_batch(slots, outs[i:i + bs], per_slot)
+                  if len(t)]
+        mgr._scatter(shards, coords[i:i + bs])
+
+
 def _dryrun_striped_once(n_devices: int, pred: np.ndarray, shape,
                          devices=None):
     """Scatter a pre-built float16 (np, hv_x, hv_y) prediction map into
@@ -931,15 +953,7 @@ def _dryrun_striped_once(n_devices: int, pred: np.ndarray, shape,
     mgr.wsi_inst_info = {}
     mgr.wsi_inst_map = np.zeros(shape, np.int32)
     mgr._alloc_pred_dev(3)
-    bs = 8 * n_devices
-    for i in range(0, len(coords), bs):
-        if mgr.mesh is None:
-            scatter_patches(mgr._pred_dev, patches[i:i + bs].to(mgr.device),
-                            coords[i:i + bs])
-        else:
-            shards = [t for t in shard_batch(mesh, patches[i:i + bs], 8)
-                      if len(t)]
-            mgr._scatter_striped(shards, coords[i:i + bs])
+    fill_pred_dev(mgr, patches, coords, 8)
     mgr.post_process_phases()
     return mgr.wsi_inst_map.copy(), set(mgr.wsi_inst_info.keys())
 

@@ -110,12 +110,13 @@ def pack_encoder(model: HoVerNet) -> Packs:
     """{call: (packed, the kernel's layout of it)} for the four block
     calls of `CALLS`, built once per set of weights (cached on the model;
     rebuilt when a parameter or buffer changes in place, as
-    `load_state_dict` does)."""
-    stamp = sum(t._version for t in model.state_dict().values())
+    `load_state_dict` does, or the model moves to another device, as a
+    copy of it does)."""
+    dev = next(model.parameters()).device
+    stamp = (sum(t._version for t in model.state_dict().values()), dev)
     cached = getattr(model, "_fused_packs", None)
     if cached is not None and cached[0] == stamp:
         return cached[1]
-    dev = next(model.parameters()).device
     packs = {}
     for name, block, base, kw in CALLS:
         flags = {k: v for k, v in kw.items() if k != "stride"}

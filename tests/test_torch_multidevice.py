@@ -17,12 +17,15 @@ devices of tests/conftest.py. Every comparison is exact:
 - the WSI manager end to end on the 600x500 pseudo-slide of
   tests/test_torch_e2e_instances.py (float32, 256^2 post-proc tiles,
   tissue in its top 320 rows: the stripes' border at row 256 runs
-  through it), `force_mesh` on 3 slots,
-  device-resident and mmap: inst_map and json nuclei equal the port's
-  single-device run and the JAX manager's `n_devices=3` run, with the
-  tail called once per shard;
-- the tile manager's round-robin and its clamp on three small images,
-  and both CLIs with `--n_devices 2`;
+  through it) on 3 slots, device-resident and mmap: inst_map and json
+  nuclei equal the port's single-device run and the JAX manager's
+  `n_devices=3` run, with the tail called once per shard;
+- the tile manager's round-robin (a dispatch thread a slot) and its
+  clamp on three small images, and both CLIs with `--n_devices 2`;
+- two slots on distinct devices (`["cpu", "cpu:0"]`, which compare and
+  hash unequal): the second slot runs a copy of the model, the tile
+  pipelines and the WSI stripes go by slot, and the outputs equal one
+  device's;
 - `entry()` against the JAX package's `__graft_entry__.entry()`.
 """
 
@@ -229,6 +232,31 @@ def test_dryrun_detects_stripes_keyed_by_device(striped4, monkeypatch):
 
 # --------------------------------------------------------- WSI end to end
 
+WSI_KW = dict(batch_size=4, chunk_shape=1000, tile_shape=256,
+              ambiguous_size=32, proc_mag=40, pred_map_dtype="float32",
+              **COMMON)
+
+
+@pytest.fixture
+def one_window_a_slot(monkeypatch):
+    """Window batches of one window a slot (no phase here has more than 4
+    windows of a shape, so at the default 4 only slot 0 would run the
+    tail)."""
+    cls = port_wsi.WSIInferManager
+    monkeypatch.setattr(cls, "_dispatch_post_processing",
+                        functools.partialmethod(
+                            cls._dispatch_post_processing, batch=1))
+
+
+def port_wsi_run(tar, slide_dir, mask_dir, root, name, **extra):
+    """The port's WSI manager in float32 on the CPU through `run_wsi`:
+    (json payload, inst_map, tail calls, manager)."""
+    mgr = port_wsi.WSIInferManager(
+        model_path=tar, dtype=torch.float32, device="cpu",
+        cache_path=str(root / f"cache_{name}"), **dict(WSI_KW, **extra))
+    return run_wsi(mgr, slide_dir, mask_dir, str(root / name)) + (mgr,)
+
+
 def run_wsi(mgr, slide_dir, mask_dir, out):
     """process_wsi_list; (json payload, inst_map, tail calls)."""
     calls = []
@@ -246,41 +274,27 @@ def run_wsi(mgr, slide_dir, mask_dir, out):
 
 
 def test_wsi_manager_striped_matches_single_and_jax(
-        inputs, top_mask, tmp_path, monkeypatch):  # noqa: F811
+        inputs, top_mask, tmp_path, one_window_a_slot):  # noqa: F811
     """The port's WSI manager on the pseudo-slide three ways (one device;
-    `force_mesh` on 3 CPU slots with the buffer device-resident, and in
-    an mmap through a 1-byte budget) and the JAX manager with
-    `n_devices=3`: identical json nuclei and inst_map. The port's window
-    batches hold one window a slot (no phase here has more than 4
-    windows of a shape, so at the default 4 only slot 0 would run the
-    tail): the tail runs once a window, in fewer batches under the
+    3 CPU slots with the buffer device-resident, and in an mmap through
+    a 1-byte budget) and the JAX manager with `n_devices=3`: identical
+    json nuclei and inst_map. The port's window batches hold one window
+    a slot: the tail runs once a window, in fewer batches under the
     mesh."""
-    cls = port_wsi.WSIInferManager
-    monkeypatch.setattr(cls, "_dispatch_post_processing",
-                        functools.partialmethod(
-                            cls._dispatch_post_processing, batch=1))
     tar, _, slide_dir, _ = inputs
-    mask_dir = top_mask
-    kw = dict(model_path=tar, batch_size=4, chunk_shape=1000,
-              tile_shape=256, ambiguous_size=32, proc_mag=40,
-              pred_map_dtype="float32", **COMMON)
-    runs = {}
-    for name, extra in (
-            ("single", {}),
-            ("striped", dict(force_mesh=True, devices=["cpu"] * 3)),
-            ("striped_mmap", dict(force_mesh=True, devices=["cpu"] * 3,
-                                  hbm_pred_budget=1))):
-        mgr = port_wsi.WSIInferManager(
-            dtype=torch.float32, device="cpu",
-            cache_path=str(tmp_path / f"cache_{name}"), **extra, **kw)
-        runs[name] = run_wsi(mgr, slide_dir, mask_dir,
-                             str(tmp_path / name)) + (mgr,)
+    runs = {name: port_wsi_run(tar, slide_dir, top_mask, tmp_path, name,
+                               **extra)
+            for name, extra in (
+                ("single", {}),
+                ("striped", dict(devices=["cpu"] * 3)),
+                ("striped_mmap", dict(devices=["cpu"] * 3,
+                                      hbm_pred_budget=1)))}
     ref = jax_wsi.WSIInferManager(
-        dtype=jnp.float32, n_devices=3,
-        cache_path=str(tmp_path / "cache_jax"), **kw)
+        model_path=tar, dtype=jnp.float32, n_devices=3,
+        cache_path=str(tmp_path / "cache_jax"), **WSI_KW)
     assert ref.mesh is not None and ref.n_devices == 3
     ref.process_wsi_list(slide_dir, str(tmp_path / "jax"),
-                         input_mask_dir=mask_dir)
+                         input_mask_dir=top_mask)
     with open(tmp_path / "jax" / "s.json") as f:
         want = json.load(f)
     want_map = np.array(ref.wsi_inst_map)
@@ -304,32 +318,92 @@ def test_wsi_manager_striped_matches_single_and_jax(
 
 # ------------------------------------------------------------------ tile
 
-def test_tile_round_robin_matches_one_device(  # noqa: F811
-        inputs, tiles, tmp_path, caplog):
+def tile_run(mgr, tiles, out):
+    """process_file_list in json mode: {image name: json payload}."""
+    assert mgr.process_file_list(tiles, str(out), save_format="json") == 3
+    names = sorted(IMAGES)
+    assert [t["name"] for t in mgr.timings] == names  # input order
+    assert mgr._rr == 3
+    got = {}
+    for n in names:
+        with open(out / "json" / f"{n}.json") as f:
+            got[n] = json.load(f)
+    return got
+
+
+def tile_manager(tar, **extra):
     from hover_net_tpu_torch.infer.tile import TileInferManager
 
+    return TileInferManager(model_path=tar, dtype=torch.float32,
+                            batch_size=4, **COMMON, **extra)
+
+
+def test_tile_round_robin_matches_one_device(  # noqa: F811
+        inputs, tiles, tmp_path, caplog):
     tar = inputs[0]
-    names = sorted(IMAGES)
-    kw = dict(model_path=tar, dtype=torch.float32, batch_size=4, **COMMON)
-    out = {}
     with caplog.at_level(logging.WARNING, logger="hover_net_tpu_torch"):
-        clamped = TileInferManager(device="cpu", n_devices=2, **kw)
+        clamped = tile_manager(tar, device="cpu", n_devices=2)
     assert clamped.devices == (torch.device("cpu"),)
     assert "n_devices=2" in caplog.text
-    for name, mgr in (
-            ("one", TileInferManager(device="cpu", **kw)),
-            ("two", TileInferManager(devices=["cpu"] * 2, **kw)),
-            ("clamped", clamped)):
-        assert mgr.process_file_list(tiles, str(tmp_path / name),
-                                     save_format="json") == 3
-        assert [t["name"] for t in mgr.timings] == names  # input order
-        assert mgr._rr == 3
-        out[name] = {}
-        for n in names:
-            with open(tmp_path / name / "json" / f"{n}.json") as f:
-                out[name][n] = json.load(f)
+    out = {name: tile_run(mgr, tiles, tmp_path / name) for name, mgr in (
+        ("one", tile_manager(tar, device="cpu")),
+        ("two", tile_manager(tar, devices=["cpu"] * 2)),
+        ("clamped", clamped))}
     assert out["two"] == out["one"] == out["clamped"]
     assert sum(len(v["nuc"]) for v in out["one"].values()) > 0
+
+
+# ------------------------------------------------------- distinct devices
+
+DISTINCT = ["cpu", "cpu:0"]
+
+
+def assert_replica(mgr):
+    """The run made the second device's model, once: a copy of the
+    first's, another module with the same weights."""
+    second = torch.device("cpu", 0)
+    assert mgr.devices == (torch.device("cpu"), second)
+    assert list(mgr._replicas) == [second]
+    replica = mgr.model_on(second)
+    assert replica is not mgr.model and replica is mgr._replicas[second]
+    want = mgr.model.state_dict()
+    got = replica.state_dict()
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert got[k] is not v and torch.equal(got[k], v), k
+
+
+def test_tile_distinct_devices_match_one_device(  # noqa: F811
+        inputs, tiles, tmp_path):
+    """Two slots on distinct devices: a dispatch thread and a pipeline a
+    slot, the second slot's with the model copy; the json of one
+    device."""
+    tar = inputs[0]
+    one = tile_run(tile_manager(tar, device="cpu"), tiles, tmp_path / "one")
+    mgr = tile_manager(tar, devices=DISTINCT)
+    assert tile_run(mgr, tiles, tmp_path / "two") == one
+    assert_replica(mgr)
+    assert {slot for _, slot in mgr._pipelines} == {0, 1}
+
+
+def test_wsi_distinct_devices_match_one_device(
+        inputs, top_mask, tmp_path, one_window_a_slot):  # noqa: F811
+    """Two stripe slots on distinct devices: the chunk pushed to both,
+    the second slot's forward shards on the model copy (one patch a
+    shard: the masked slide has 4 patches); the json nuclei and inst_map
+    of one device."""
+    tar, _, slide_dir, _ = inputs
+    single = port_wsi_run(tar, slide_dir, top_mask, tmp_path, "single",
+                          batch_size=1)
+    payload, inst_map, calls, mgr = port_wsi_run(
+        tar, slide_dir, top_mask, tmp_path, "distinct", devices=DISTINCT,
+        batch_size=1)
+    assert mgr.mesh.devices == [torch.device(d) for d in DISTINCT]
+    assert_replica(mgr)
+    assert payload == single[0] and len(payload["nuc"]) > 50
+    np.testing.assert_array_equal(inst_map, single[1])
+    assert len(calls) == mgr.n_window_shards == single[3].n_window_shards
+    assert mgr.n_forward_batches == single[3].n_forward_batches == 4
 
 
 @pytest.mark.parametrize("command", ["tile", "wsi"])
