@@ -125,7 +125,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    13's), the card
    line, and last {"ok": true, "device": {...}}.
 
-Outputs go to build/chip_smoke/ in the checkout.
+Outputs go to build/chip_smoke/ in the checkout. On its way out, whether
+it passed or failed, the script stops every process it started (the
+training loader's forkserver and multiprocessing's resource tracker
+included) and waits for each to end.
 """
 
 from __future__ import annotations
@@ -1823,5 +1826,45 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def child_pids():
+    """The pids of this process's live children, from /proc."""
+    pids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == os.getpid():
+            pids.append(int(name))
+    return pids
+
+
+def stop_children():
+    """Ends every process the run started, on success and on failure:
+    the training loader's forkserver and multiprocessing's resource
+    tracker outlive their work (each lives until its parent exits and
+    only then sees its pipe close), so they are stopped here and
+    reaped; any other child left is ended and reaped too."""
+    import signal
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    for pid in child_pids():
+        print(f"chip_smoke: stopping child process {pid}", file=sys.stderr,
+              flush=True)
+        try:
+            os.kill(pid, signal.SIGTERM)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+
+
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_children()
