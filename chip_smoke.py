@@ -119,7 +119,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    json of phase 4, K1 once per image. Each part runs single, striped
    (2 or 4 slots), striped, single, and prints each run's seconds (the
    striping overhead on one card);
-14. prints the kernel table as one JSON line (K1's times at the WSI
+14. multi-device training on one card, one process a rank
+   (parallel/distributed.py), every rank on cuda:0: (a)
+   `entry.dryrun_multichip(1)`, a one-rank NCCL group, then the striped
+   inference dryrun; (b) `dryrun_train_step(2, devices=["cuda:0"] * 2)`,
+   gloo with CUDA tensors: a finite loss and bit-identical ranks; (c) the
+   exactness check (parallel/dp_check.py): width 64, 256^2 -> 164^2, the
+   model's body, heads and loss in float64 (cuDNN's double convolutions),
+   2 ranks on a global batch of 4 for 3 steps in both freeze modes
+   against the one-process steps on the same global batches, at the
+   tolerances of tests/test_torch_train_step.py (loss terms 1e-5,
+   grad_norm 1e-4 relative at every step; step 1's gradients 1e-4 of
+   their scale; parameters 0.1 * lr and BN stats 1e-5 of their scale
+   after step 3; frozen parameters bit-identical), the ranks
+   bit-identical after step 3; (d) `TrainManager(devices=["cuda:0"] * 2)` on
+   phase 11's patches, both default phases for one epoch at per-rank
+   batches of 8 and 2 (phase 11's global 16 and 4): finite losses, the
+   freeze cut, one `.tar` an epoch from rank 0, the ranks checked
+   identical by the trainer after each phase, and the last `.tar`
+   through the tile manager. Prints each phase's ms per step and
+   patches/s beside the card line: two ranks sharing one card, not a
+   scaling number;
+15. prints the kernel table as one JSON line (K1's times at the WSI
    window batch; each kernel's bound from its inputs and outputs at the
    timed shape; the launches of K1 and K3 are phase 7's and phase
    13's), the card
@@ -1745,6 +1766,172 @@ def check_evaluation(work, tar, device="cuda"):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------- multi-device training
+
+DP_WIDTH = 64       # the exactness check (c): the model at full width,
+DP_SIZE = (256, 164)  # fast mode's patches,
+DP_GLOBAL = 4       # a global batch of 4 over 2 ranks, for 3 steps
+DP_STEPS = 3
+DP_SCHEDULE = dict(lr=1.0e-4, step_epochs=1, steps_per_epoch=2, gamma=0.1)
+FROZEN_PREFIXES = ("d1.", "d2.", "d3.", "d0.units.")
+
+
+def dp_exactness(card, device="cuda:0"):
+    """Phase 14 (c): 2 ranks on `device` against the one-process step on
+    the same global batches, width 64, 256^2 -> 164^2, the body, heads
+    and loss in float64, 3 steps, both freeze modes, at the tolerances of
+    tests/test_torch_train_step.py (terms at every step, the gradients of
+    step 1, the parameters and BN stats after step 3, the freeze cut), and
+    the ranks bit-identical after the last step.
+
+    The heads run in float64 here (`head_dtype`): in float32, a rounding
+    in the order of a head's sum moves some gradients near Adam's eps,
+    whose updates then part by up to ~lr over three steps (parallel/
+    dp_check.py)."""
+    import torch
+
+    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+    from hover_net_tpu_torch.parallel import dp_check
+
+    cfg = HoVerNetConfig(mode="fast", nr_types=5, width=DP_WIDTH,
+                         dtype=torch.float64, head_dtype=torch.float64)
+    start = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5, width=DP_WIDTH),
+                     generator=torch.Generator().manual_seed(14)).state_dict()
+    params = [k for k, p in HoVerNet(HoVerNetConfig(
+        mode="fast", nr_types=5, width=8)).named_parameters()]
+    rng = np.random.default_rng(14)
+    (size, out), n = DP_SIZE, DP_GLOBAL
+    data = [{
+        "img": rng.integers(0, 256, (n, size, size, 3), np.uint8),
+        "np_map": (rng.uniform(0, 1, (n, out, out)) > 0.4).astype(np.uint8),
+        "hv_map": rng.uniform(-1, 1, (n, out, out, 2)).astype(np.float32),
+        "tp_map": rng.integers(0, 5, (n, out, out)).astype(np.int32),
+    } for _ in range(DP_STEPS)]
+    t0 = time.perf_counter()
+    cases = [(True, None), (False, None)]
+    ranks = dp_check.rank_steps([device] * 2, cfg, start, data, cases,
+                                DP_SCHEDULE)
+    t_ranks = time.perf_counter() - t0
+    for (freeze, _), got in zip(cases, ranks):
+        t0 = time.perf_counter()
+        want = dp_check.one_process_steps(device, cfg, start, data, freeze,
+                                          DP_SCHEDULE)
+        t_one = time.perf_counter() - t0
+        frozen = [k for k in params
+                  if freeze and k.startswith(FROZEN_PREFIXES)]
+        worst = dp_check.misses(got, want, start, params, frozen,
+                                DP_SCHEDULE["lr"])
+        log(f"(c) w{DP_WIDTH} float64 body and heads, 2 ranks on {device} "
+            f"vs one process, freeze_encoder={freeze}, global batch {n}, "
+            f"{DP_STEPS} steps: worst error / tolerance "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+            + f"; ranks bit-identical: {got['equal']}; one process "
+            f"{t_one:.1f} s ({card})")
+        finite = all(np.isfinite(v) for t in got["terms"] for v in t.values())
+        if max(worst.values()) > 1.0 or not got["equal"] or not finite:
+            raise AssertionError("the 2-rank steps disagree with the "
+                                 "one-process steps")
+    log(f"(c) both freeze modes on 2 ranks in {t_ranks:.1f} s (spawn "
+        "included)")
+
+
+def dp_trainer(work, card, device="cuda:0"):
+    """Phase 14 (d): TrainManager(devices=["cuda:0"] * 2) on phase 11's
+    patches, both default phases for one epoch each at per-rank batches of
+    8 and 2 (the global 16 and 4 of phase 11)."""
+    import torch
+
+    from hover_net_tpu_torch.config import TrainConfig
+    from hover_net_tpu_torch.infer.tile import TileInferManager
+    from hover_net_tpu_torch.models.checkpoints import load_torch_tar
+    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+    from hover_net_tpu_torch.train.manager import TrainManager
+
+    root = os.path.join(work, "train")
+    logs = os.path.join(root, "logs_2ranks")
+    config = TrainConfig(
+        model_mode="fast", nr_types=5, width=TRAIN_WIDTH, log_dir=logs,
+        train_dir_list=[os.path.join(root, "patches", "train")],
+        valid_dir_list=[os.path.join(root, "patches", "valid")],
+        nr_procs_train=4, nr_procs_valid=4)
+    for phase, batch in zip(config.phases, (8, 2)):
+        phase.nr_epochs = 1
+        phase.batch_size = dict(phase.batch_size, train=batch)
+    t0 = time.perf_counter()
+    infos = TrainManager(config, devices=[device] * 2).run()
+    wall = time.perf_counter() - t0
+    for idx, (info, phase) in enumerate(zip(infos, config.phases)):
+        batch = 2 * phase.batch_size["train"]
+        if len(info.losses) < 8 or not np.all(np.isfinite(info.losses)):
+            raise AssertionError(f"2 ranks, phase {idx}: {len(info.losses)} "
+                                 f"steps, losses {info.losses}")
+        ms, rate, share, run_rate = step_stats(info, batch)
+        log(f"(d) 2 ranks on one card, phase {idx} (freeze_encoder="
+            f"{phase.freeze_encoder}, global batch {batch}): "
+            f"{len(info.losses)} steps, {ms:.3f} ms per step (median after "
+            f"2), {rate:.1f} patches/s per step, rank 0's loader wait "
+            f"{100 * share:.1f} %; {run_rate:.1f} patches/s over the phase's "
+            f"run of {info.run_s:.1f} s; overall_loss {info.losses[0]:.4f} "
+            f"-> {info.losses[-1]:.4f} ({card}; two ranks sharing one card, "
+            "not a scaling number)")
+    tars = [os.path.join(logs, f"{i:02d}", "net_epoch=1.tar")
+            for i in range(2)]
+    if not all(os.path.exists(t) for t in tars):
+        raise AssertionError("2 ranks: a phase wrote no checkpoint")
+    start = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5,
+                                    width=TRAIN_WIDTH),
+                     generator=torch.Generator().manual_seed(config.seed)
+                     ).state_dict()
+    p0 = load_torch_tar(tars[0])
+    params = [k for k, _ in HoVerNet(HoVerNetConfig(
+        mode="fast", nr_types=5, width=8)).named_parameters()]
+    bad = [k for k in params
+           if torch.equal(p0[k], start[k]) != k.startswith(FROZEN_PREFIXES)]
+    if bad:
+        raise AssertionError(f"2 ranks: the freeze cut is off at {bad[:5]}")
+    mgr = TileInferManager(model_path=tars[1], mode="fast", nr_types=5,
+                           width=TRAIN_WIDTH, device=device,
+                           type_info_path=os.path.join(ROOT,
+                                                       "type_info.json"))
+    out = os.path.join(root, "tile_out_2ranks")
+    if mgr.process_file_list(os.path.join(root, "tile_in"), out,
+                             save_format="json") != 1:
+        raise AssertionError("the 2-rank checkpoint wrote no json")
+    log(f"(d) TrainManager on 2 ranks: 2 phases in {wall:.1f} s wall (spawn, "
+        "data workers and validation included); frozen parameters "
+        "unchanged after phase 1 and the rest moved; the ranks identical "
+        "after each phase (the trainer checks it); one .tar an epoch; the "
+        "last through TileInferManager: one json")
+    del mgr
+
+
+def check_multi_device_training(work, card, device="cuda:0"):
+    """Phase 14: (a) dryrun_multichip(1), a one-rank NCCL group on cuda:0;
+    (b) dryrun_train_step on 2 ranks on cuda:0 (gloo, CUDA tensors);
+    (c) the exactness check; (d) the trainer on 2 ranks."""
+    import torch
+
+    from hover_net_tpu_torch.entry import dryrun_multichip
+    from hover_net_tpu_torch.parallel.distributed import backend_for
+    from hover_net_tpu_torch.parallel.train_parallel import dryrun_train_step
+
+    t_start = t0 = time.perf_counter()
+    dryrun_multichip(1, [device])
+    log(f"(a) dryrun_multichip(1) (one rank on {device}, "
+        f"{backend_for([device])}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_train_step(2, devices=[device] * 2)
+    log(f"(b) dryrun_train_step on 2 ranks on {device} "
+        f"({backend_for([device] * 2)}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dp_exactness(card, device)
+    torch.cuda.empty_cache()
+    dp_trainer(work, card, device)
+    torch.cuda.empty_cache()
+    log(f"phase 14 in {time.perf_counter() - t_start:.1f} s")
+
+
 def main():
     import torch
 
@@ -1797,6 +1984,7 @@ def main():
     k1_mesh, k3_mesh = check_multi_device(work, dirs, card)
     k1_launches += k1_mesh
     k3_launches += k3_mesh
+    check_multi_device_training(work, card)
 
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda",

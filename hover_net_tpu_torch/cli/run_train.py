@@ -6,8 +6,10 @@
 
 Counterpart of hover_net_tpu/cli/run_train.py: the same flags plus
 `--device` ('cuda' by default; without a GPU that raises, pass 'cpu' to
-train on the CPU). `--n_devices` > 1 exits with an error: the port
-trains on one device. A config file is a Python module defining
+train on the CPU). `--n_devices N` trains data-parallel on N devices,
+one process each (every card from `--device` on when it is not given, as
+the JAX CLI takes every device; more than there are raises; with
+`--device cpu`, N processes on the CPU). A config file is a Python module defining
 `config = TrainConfig(...)` (hover_net_tpu_torch.config); with no file,
 flags build the default two-phase CoNSeP setup
 (models/hovernet/opt.py:23-142 equivalent). `--view` writes PNGs and
@@ -18,7 +20,6 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
-import sys
 
 
 def load_config(path):
@@ -77,7 +78,9 @@ def main(argv=None):
     p.add_argument("--view", default=None, choices=["train", "valid"])
     p.add_argument("--resume", action="store_true",
                    help="resume the current phase from its last checkpoint")
-    p.add_argument("--n_devices", type=int, default=None)
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="devices to train on, one process each (default: "
+                        "every CUDA card from --device on; 1 on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on ('cuda' or 'cpu')")
     p.add_argument("--pretrained", default=None,
@@ -86,10 +89,6 @@ def main(argv=None):
                         "overrides the config's value "
                         "(reference run_train.py:196-203, opt.py:55)")
     args = p.parse_args(argv)
-    if args.n_devices is not None and args.n_devices > 1:
-        sys.exit("hover_net_tpu_torch: --n_devices > 1: not ported yet "
-                 "(the port trains on one device; use "
-                 "hover_net_tpu.cli.run_train)")
 
     if args.config:
         config = load_config(args.config)

@@ -15,6 +15,12 @@ the JAX package's `jax.device_put` double buffer with pinned host
 batches copied `non_blocking` on a side CUDA stream, the compute stream
 waiting on an event per batch.
 
+In data-parallel training each rank has a `TrainLoader(rank=r,
+world_size=W)`: every rank walks the same seeded order in global batches
+of `batch_size` and loads only its consecutive shard of each (the shard
+that the JAX package's `shard_batch` gives device r), and its
+`PrefetchLoader` puts the shard on the rank's device.
+
 Patch files are [H, W, 3+1(+1)] stacks: RGB, instance map(, type map) —
 the format produced by cli/extract_patches.py (same as the reference's
 extract_patches.py output).
@@ -88,14 +94,19 @@ class PatchDataset:
 
 
 class TrainLoader:
-    """Epoch iterator yielding stacked host batches."""
+    """Epoch iterator yielding stacked host batches: the global batches of
+    `batch_size`, or with `world_size` > 1 rank `rank`'s consecutive
+    shard of each."""
 
     def __init__(self, dataset: PatchDataset, batch_size: int,
                  input_shape, mask_shape, mode: str = "train",
                  with_type: bool = False, num_workers: int = 8,
-                 seed: int = 10, drop_last: Optional[bool] = None):
+                 seed: int = 10, drop_last: Optional[bool] = None,
+                 rank: int = 0, world_size: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank = rank
+        self.world_size = world_size
         self.mode = mode
         self.with_type = with_type
         self.num_workers = 0 if num_workers is None else num_workers
@@ -117,6 +128,7 @@ class TrainLoader:
             _worker_init(*self._init_args, seed)
 
     def steps_per_epoch(self) -> int:
+        """Global batches per epoch (each rank takes a step on each)."""
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
@@ -128,19 +140,26 @@ class TrainLoader:
         files = [self.dataset.files[i] for i in order]
         self.epoch += 1
 
-        if self._pool is not None:
-            sample_iter = self._pool.map(_load_one, files, chunksize=4)
-        else:
-            sample_iter = map(_load_one, files)
+        # this rank's files of each global batch, and whether that batch
+        # is full; one rank takes every file
+        mine: List[str] = []
+        shards = []
+        for start in range(0, len(files), self.batch_size):
+            chunk = files[start:start + self.batch_size]
+            per = -(-len(chunk) // self.world_size)
+            part = chunk[self.rank * per:(self.rank + 1) * per]
+            mine += part
+            shards.append((len(part), len(chunk) == self.batch_size))
 
-        batch: List[Dict[str, np.ndarray]] = []
-        for sample in sample_iter:
-            batch.append(sample)
-            if len(batch) == self.batch_size:
+        if self._pool is not None:
+            sample_iter = self._pool.map(_load_one, mine, chunksize=4)
+        else:
+            sample_iter = map(_load_one, mine)
+
+        for size, full in shards:
+            batch = [next(sample_iter) for _ in range(size)]
+            if batch and (full or not self.drop_last):
                 yield self._stack(batch)
-                batch = []
-        if batch and not self.drop_last:
-            yield self._stack(batch)
 
     @staticmethod
     def _stack(batch):

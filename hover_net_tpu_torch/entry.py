@@ -1,4 +1,4 @@
-"""The flagship inference forward as an entry point: `entry()`.
+"""The port's entry points: `entry()` and `dryrun_multichip(n)`.
 
 Counterpart of `entry()` in the repository's `__graft_entry__.py`: the
 fast-mode HoVerNet with the 5-type branch at the reference width 64, a
@@ -10,6 +10,13 @@ the type argmax, the foreground probability and the two hv maps.
     from hover_net_tpu_torch.entry import entry
     fn, args = entry()            # on cuda
     out = fn(*args)
+
+`dryrun_multichip(n)`, the counterpart of `dryrun_multichip` there: one
+data-parallel train step over n ranks (`dryrun_train_step`: one process
+a device, the BN moments and the loss over the global batch), then one
+round of the striped WSI post-processing over an n-slot mesh
+(`infer.wsi.dryrun_striped_infer`). `devices` defaults to cuda:0..n-1
+and may repeat a device (`["cpu"] * n` on the CPU).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 from .infer.base import resolve_device
 from .infer.steps import infer_output
 from .models.hovernet import HoVerNet, HoVerNetConfig
+from .parallel.train_parallel import dryrun_train_step
 
 
 def entry(device="cuda", width: int = 64):
@@ -38,3 +46,15 @@ def entry(device="cuda", width: int = 64):
     size = cfg.patch_input_shape
     imgs = torch.zeros((8, size, size, 3), dtype=torch.float32, device=dev)
     return fn, (model, imgs)
+
+
+def dryrun_multichip(n_devices: int, devices=None) -> None:
+    """The train-step dryrun, then the striped-inference dryrun, over
+    `n_devices` devices; each raises on a failed check and prints its
+    line."""
+    from .infer.wsi import dryrun_striped_infer
+
+    dryrun_train_step(n_devices, devices)
+    res = dryrun_striped_infer(n_devices, devices)
+    print(f"dryrun_striped_infer ok: {n_devices} devices, "
+          f"{res['n_instances']} instances")

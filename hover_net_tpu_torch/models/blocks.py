@@ -59,13 +59,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     (1 - m) rv + m * var * n / (n - 1), over the n = N*H*W elements of a
     channel; the buffer takes (1 - m) rv + m * var from it, on the
     C-element vector only. The copy keeps the buffer out of autograd's
-    saved tensors."""
+    saved tensors.
+
+    Inside `global_batch_stats(model, reduce)` a train-mode forward takes
+    the moments over the global batch of data-parallel training instead:
+    `reduce` sums a tensor over the replicas, differentiably."""
+
+    reduce = None
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
+        if self.reduce is not None:
+            return self._global_forward(x)
         keep = 1.0 - self.momentum
         rv = self.running_var.clone()
         out = F.batch_norm(x, self.running_mean, rv, self.weight, self.bias,
@@ -75,6 +83,44 @@ class BatchNorm2d(nn.BatchNorm2d):
             unbiased = rv.sub(self.running_var, alpha=keep)  # m * var_u
             self.running_var.mul_(keep).add_(unbiased, alpha=(n - 1) / n)
         return out
+
+    def _global_forward(self, x):
+        """Normalise by the mean and the biased variance of the global
+        batch, in two passes (the sum and count, then the sum of squared
+        deviations: no E[x^2] - E[x]^2 cancellation), and fold both into
+        the running stats."""
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c)
+        sums = self.reduce(torch.cat([x.sum(dim=(0, 2, 3)), count]))
+        n = sums[c]
+        mean = sums[:c] / n
+        dev = x - mean[None, :, None, None]
+        var = self.reduce(dev.square().sum(dim=(0, 2, 3))) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return dev * scale[None, :, None, None] + self.bias[None, :, None, None]
+
+
+@contextlib.contextmanager
+def global_batch_stats(model: nn.Module, reduce):
+    """Within the block, every `BatchNorm2d` of `model` in train mode takes
+    its moments over the global batch, `reduce` summing over the replicas
+    (`parallel.distributed.all_reduce_sum`); `reduce=None` leaves them
+    per replica."""
+    if reduce is None:
+        yield
+        return
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.reduce = reduce
+    try:
+        yield
+    finally:
+        for m in bns:
+            del m.reduce
 
 
 def _bn(ch: int) -> BatchNorm2d:

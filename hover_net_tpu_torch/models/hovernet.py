@@ -15,8 +15,9 @@ net_desc.py):
   cut: d0's unit towers and all of d1..d3 get no gradient, while conv0,
   d0's shortcut and closing BN, `conv_bot` and the decoders learn.
 
-`cfg.dtype` is the compute dtype of the body. The heads (`u0.conv`) stay
-float32, as in the JAX package.
+`cfg.dtype` is the compute dtype of the body. The heads (`u0.conv`) run
+in `cfg.head_dtype`, float32 as in the JAX package unless asked otherwise
+(the data-parallel exactness check runs them in float64).
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ class HoVerNetConfig:
     input_ch: int = 3
     width: int = 64  # 64 == reference; smaller for tests
     dtype: torch.dtype = torch.float32  # compute dtype of the body
+    head_dtype: torch.dtype = torch.float32  # of the heads and the loss
 
     def __post_init__(self):
         if self.mode not in MODE_SHAPES:
@@ -106,7 +108,8 @@ class _U1(nn.Module):
 
 
 class _U0(nn.Module):
-    """BN -> ReLU -> 1x1 head with bias, run in float32."""
+    """BN -> ReLU -> 1x1 head with bias, run in the conv's dtype
+    (`cfg.head_dtype`)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -114,7 +117,7 @@ class _U0(nn.Module):
         self.conv = _conv(cin, cout, 1, bias=True)
 
     def forward(self, x):
-        return self.conv(F.relu(self.bn(x)).float())
+        return self.conv(F.relu(self.bn(x)).to(self.conv.weight.dtype))
 
 
 class DecoderBranch(nn.Module):
@@ -137,7 +140,7 @@ class DecoderBranch(nn.Module):
 
 class HoVerNet(nn.Module):
     """Full network. Input: NCHW uint8/float RGB in [0, 255]. Output: dict
-    of NCHW float32 logits per branch.
+    of NCHW logits per branch, in `cfg.head_dtype` (float32).
 
     Conv weights are drawn as the JAX package draws them (normal, fan-out
     scaled, gain 2) from `generator`; BN starts at (mean 0, var 1, scale
@@ -160,10 +163,10 @@ class HoVerNet(nn.Module):
         })
         self.upsample2x = UpSample2x()
         self._init_weights(generator)
-        if cfg.dtype != torch.float32:
+        if cfg.dtype != torch.float32 or cfg.head_dtype != torch.float32:
             self.to(cfg.dtype)
             for branch in self.decoder.values():
-                branch.u0.conv.float()
+                branch.u0.conv.to(cfg.head_dtype)
 
     @torch.no_grad()
     def _init_weights(self, generator):

@@ -9,6 +9,12 @@ models/hovernet/utils.py:54-172, with its two quirks kept:
   *vertical* kernel to channel 1 — the reference docstring says the
   opposite of what its code does (utils.py:106-162); the code behaviour
   is kept.
+
+Every term is a ratio of sums over the batch. `reduce`, when given, sums
+a tensor of such sums over the replicas of data-parallel training
+(`parallel.distributed.all_reduce_sum`), so that each replica gets the
+term of the global batch, as the JAX package's meshed step computes it;
+`reduce=None` is the one-device graph.
 """
 
 from __future__ import annotations
@@ -20,7 +26,23 @@ import torch
 import torch.nn.functional as F
 
 
-def xentropy_loss(true, pred, reduction: str = "mean"):
+def _mean(x, reduce=None):
+    """The mean of `x`, over the global batch under `reduce`."""
+    if reduce is None:
+        return torch.mean(x)
+    total = reduce(torch.stack([torch.sum(x), x.new_tensor(x.numel())]))
+    return total[0] / total[1]
+
+
+def _sums(reduce, *sums):
+    """The local sums, or under `reduce` the global ones (one
+    collective)."""
+    if reduce is None:
+        return sums
+    return reduce(torch.stack(sums)).unbind(0)
+
+
+def xentropy_loss(true, pred, reduction: str = "mean", reduce=None):
     """Manual CE over softmaxed predictions, NCHW (utils.py:54-72).
 
     `pred` must already be post-softmax probabilities.
@@ -29,20 +51,22 @@ def xentropy_loss(true, pred, reduction: str = "mean"):
     pred = pred / torch.sum(pred, dim=1, keepdim=True)
     pred = torch.clamp(pred, epsilon, 1.0 - epsilon)
     loss = -torch.sum(true * torch.log(pred), dim=1, keepdim=True)
-    return torch.mean(loss) if reduction == "mean" else torch.sum(loss)
+    if reduction == "mean":
+        return _mean(loss, reduce)
+    return _sums(reduce, torch.sum(loss))[0]
 
 
-def dice_loss(true, pred, smooth: float = 1.0e-3):
+def dice_loss(true, pred, smooth: float = 1.0e-3, reduce=None):
     """Per-channel soft dice summed over channels (utils.py:76-83)."""
-    inse = torch.sum(pred * true, dim=(0, 2, 3))
-    l = torch.sum(pred, dim=(0, 2, 3))
-    r = torch.sum(true, dim=(0, 2, 3))
+    inse, l, r = _sums(reduce, torch.sum(pred * true, dim=(0, 2, 3)),
+                       torch.sum(pred, dim=(0, 2, 3)),
+                       torch.sum(true, dim=(0, 2, 3)))
     loss = 1.0 - (2.0 * inse + smooth) / (l + r + smooth)
     return torch.sum(loss)
 
 
-def mse_loss(true, pred):
-    return torch.mean((pred - true) ** 2)
+def mse_loss(true, pred, reduce=None):
+    return _mean((pred - true) ** 2, reduce)
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,7 +92,7 @@ def gradient_hv(hv):
     return F.conv2d(hv, k, padding=2, groups=2)
 
 
-def msge_loss(true, pred, focus):
+def msge_loss(true, pred, focus, reduce=None):
     """Masked MSE of hv gradients inside nuclei (utils.py:106-172).
 
     focus: NHW float/bool mask (the positive NP channel).
@@ -77,7 +101,8 @@ def msge_loss(true, pred, focus):
     focus = torch.cat([focus, focus], dim=1)
     err = gradient_hv(pred) - gradient_hv(true)
     loss = focus * (err * err)
-    return torch.sum(loss) / (torch.sum(focus) + 1.0e-8)
+    num, den = _sums(reduce, torch.sum(loss), torch.sum(focus))
+    return num / (den + 1.0e-8)
 
 
 LOSS_FNS = {
@@ -95,11 +120,13 @@ DEFAULT_LOSS_WEIGHTS = {
 }
 
 
-def hovernet_loss(pred_dict, true_dict, focus, weights=None):
+def hovernet_loss(pred_dict, true_dict, focus, weights=None, reduce=None):
     """Total weighted loss + per-term scalars (run_desc.py:67-79).
 
     pred_dict: post-softmax np/tp probs + raw hv, NCHW. true_dict:
     one-hot np/tp + hv, NCHW. focus: positive-class NP mask (NHW).
+    reduce: None, or the sum over the replicas that makes every term the
+    global batch's.
     """
     weights = weights or DEFAULT_LOSS_WEIGHTS
     terms = {}
@@ -110,9 +137,10 @@ def hovernet_loss(pred_dict, true_dict, focus, weights=None):
         for name, w in branch_losses.items():
             fn = LOSS_FNS[name]
             if name == "msge":
-                val = fn(true_dict[branch], pred_dict[branch], focus)
+                val = fn(true_dict[branch], pred_dict[branch], focus,
+                         reduce=reduce)
             else:
-                val = fn(true_dict[branch], pred_dict[branch])
+                val = fn(true_dict[branch], pred_dict[branch], reduce=reduce)
             terms[f"loss_{branch}_{name}"] = val
             total = total + w * val
     terms["overall_loss"] = total

@@ -7,7 +7,10 @@ Differences from the reference, on purpose:
   read-modify-write "may corrupt", logging.py:143-145);
 - the learning rate is set per update from the trainer's
   `schedule(step)`, so ScheduleLr is a no-op kept for wiring parity;
-  TrackLr reads the schedule at the current step.
+  TrackLr reads the schedule at the current step;
+- `Barrier` ends each epoch of a multi-device run: the ranks other than
+  0 wait there while rank 0 runs the other callbacks (validation, logs,
+  checkpoints).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import tempfile
 
 import numpy as np
 
+from ..parallel.distributed import barrier
 
 
 class BaseCallback:
@@ -42,6 +46,16 @@ class ScheduleLr(BaseCallback):
 
     def run(self, state, event):
         return
+
+
+class Barrier(BaseCallback):
+    """Wait for every rank of the process group."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def run(self, state, event):
+        barrier(self.group)
 
 
 class TriggerEngine(BaseCallback):

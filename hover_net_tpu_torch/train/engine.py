@@ -53,8 +53,12 @@ class State:
 
 class RunEngine:
     def __init__(self, engine_name: str, dataloader, run_step: Callable,
-                 run_info=None, log_info: Optional[dict] = None):
+                 run_info=None, log_info: Optional[dict] = None,
+                 progress: bool = True):
         self.engine_name = engine_name
+        # the progress bar; off on the ranks other than 0 of a
+        # multi-device run
+        self.progress = progress
         self.dataloader = dataloader
         self.run_step = run_step
         self.state = State()
@@ -84,6 +88,7 @@ class RunEngine:
             pbar_kwargs = dict(
                 desc=f"{self.engine_name}-{self.state.curr_epoch + 1:03d}",
                 leave=True, ncols=100, ascii=True, position=0,
+                disable=not self.progress,
             )
             try:
                 pbar_kwargs["total"] = len(self.dataloader)

@@ -1,4 +1,5 @@
-"""Training orchestrator (run_train.py parity) on one device.
+"""Training orchestrator (run_train.py parity), on one device or across
+several.
 
 Counterpart of hover_net_tpu/train/manager.py. Per phase
 (TrainConfig.phases): build the model and optimizer, load pretrained
@@ -10,7 +11,17 @@ are the reference's `.tar` ({'desc', 'optimizer', 'step'}), and
 left resume as a TODO, run_train.py:176).
 
 The trainer runs on `device` ('cuda' by default; 'cpu' only when asked —
-a missing GPU raises, there is no fallback).
+a missing GPU raises, there is no fallback). As the JAX trainer takes
+every device of its mesh, `n_devices=None` takes every CUDA card from
+`device` on (`train_devices`). On one device the phases run in this
+process. On several, `run` starts one process a device
+(parallel/distributed.py) and each runs the phases on its shard of every
+global batch of `batch_size[mode] * n_devices`, with the data-parallel
+train step; rank 0 broadcasts its starting state, and alone runs
+validation (over the whole valid set, on its device), the logging,
+stats.json and the checkpoints, while the other ranks wait at a barrier
+at the end of each epoch. After each phase the ranks check that they
+hold the same parameters and buffers, bit for bit.
 """
 
 from __future__ import annotations
@@ -20,7 +31,7 @@ import json
 import os
 import shutil
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +41,8 @@ from ..data.train_pipeline import PatchDataset, PrefetchLoader, TrainLoader
 from ..infer.base import resolve_device
 from ..models import checkpoints as ckpt
 from ..models.hovernet import HoVerNet, HoVerNetConfig
+from ..parallel import distributed
+from ..parallel.mesh import canonical_device
 from ..parallel.train_parallel import (
     init_train_state, make_eval_step, make_optimizer,
     make_train_step,
@@ -65,24 +78,75 @@ class RunInfo:
                             self.train_state.step)
 
 
+def train_devices(n_devices: Optional[int] = None, device="cuda",
+                  devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The devices of a training run, one rank each. `devices`, when given,
+    is taken as it is (its first `n_devices`; it may repeat a device).
+    Else on CUDA: `n_devices` cards from `device` (cuda:0 by default) on,
+    all of them when `n_devices` is None, as the JAX trainer's
+    `make_mesh(None)` takes every device; asking for more cards than
+    there are raises, as `make_mesh` asserts. On the CPU: `n_devices`
+    ranks (1 when None) on the one CPU device."""
+    if devices is None:
+        dev = canonical_device(resolve_device(device))
+        if dev.type == "cuda":
+            devices = [torch.device("cuda", i) for i in
+                       range(dev.index, torch.cuda.device_count())]
+        else:
+            devices = [dev] * (n_devices or 1)
+    devices = [canonical_device(d) for d in devices]
+    if n_devices is not None:
+        if len(devices) < n_devices:
+            raise ValueError(f"need {n_devices} devices, have "
+                             f"{len(devices)}: {[str(d) for d in devices]}")
+        devices = devices[:n_devices]
+    if not devices:
+        raise ValueError("training needs at least one device")
+    return devices
+
+
+def _train_rank(ctx, config: TrainConfig, devices, resume: bool):
+    """A rank of a multi-device run: the phases on this rank's shard;
+    rank 0 returns the RunInfos."""
+    mgr = TrainManager(config, devices=devices)
+    mgr.ctx = ctx
+    mgr.device = ctx.device
+    infos = mgr.run(resume=resume)
+    return infos if ctx.rank == 0 else None
+
+
 class TrainManager:
     def __init__(self, config: TrainConfig, n_devices: Optional[int] = None,
-                 device="cuda"):
-        if n_devices is not None and n_devices > 1:
-            raise ValueError("hover_net_tpu_torch trains on one device; "
-                             f"n_devices={n_devices} is not ported")
+                 device="cuda", devices: Optional[Sequence] = None):
         self.cfg = config
-        self.device = resolve_device(device)
-        self.n_devices = 1
+        self.devices = train_devices(n_devices, device, devices)
+        self.n_devices = len(self.devices)
+        self.device = self.devices[0]
+        # the rank of a multi-device run (parallel.distributed.Rank), set
+        # in each rank's process; None on one device
+        self.ctx = None
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process validates, logs and writes checkpoints."""
+        return self.ctx is None or self.ctx.rank == 0
 
     # ----------------------------------------------------------- phases
 
     def run(self, resume: bool = False) -> List[RunInfo]:
-        """Run all phases and return each run phase's RunInfo. With
-        resume=True, completed phases are skipped and the first
-        incomplete phase continues from its last checkpoint (the
-        reference has no training resume at all — run_train.py:176
-        TODO)."""
+        """Run all phases and return each run phase's RunInfo (rank 0's on
+        several devices). With resume=True, completed phases are skipped
+        and the first incomplete phase continues from its last checkpoint
+        (the reference has no training resume at all — run_train.py:176
+        TODO).
+
+        On several devices the ranks run with no overall time limit: a
+        rank that dies ends the run at once, and a collective waits at
+        most `distributed.COLLECTIVE_TIMEOUT_S`."""
+        if self.n_devices > 1 and self.ctx is None:
+            return distributed.run_ranks(
+                _train_rank, self.devices,
+                (self.cfg, self.devices, resume), timeout_s=None)[0]
         np.random.seed(self.cfg.seed)
         prev_dir = None
         infos = []
@@ -145,17 +209,23 @@ class TrainManager:
         workers = 0 if self.cfg.debug else (
             self.cfg.nr_procs_train if mode == "train" else self.cfg.nr_procs_valid
         )
+        # training: the global batch, this rank's shard of it; validation
+        # runs on rank 0 alone, over the whole set
+        shard = ({} if mode != "train" or self.ctx is None else
+                 {"rank": self.ctx.rank, "world_size": self.ctx.world_size})
         return TrainLoader(
             dataset, batch_size=phase.batch_size[mode] * self.n_devices,
             input_shape=self.cfg.act_shape, mask_shape=self.cfg.out_shape,
             mode=mode, with_type=self.cfg.type_classification,
-            num_workers=workers, seed=self.cfg.seed,
+            num_workers=workers, seed=self.cfg.seed, **shard,
         )
 
     # -------------------------------------------------------------- run
 
     def run_once(self, phase, save_dir, prev_dir=None, resume: bool = False):
-        if self.cfg.logging:
+        group = None if self.ctx is None else self.ctx.group
+        writes_logs = self.cfg.logging and self.is_main
+        if writes_logs:
             if not resume:
                 if os.path.isdir(save_dir):
                     shutil.rmtree(save_dir)
@@ -170,7 +240,8 @@ class TrainManager:
 
         model = self._build_model(phase)
         train_loader = self._get_loader("train", phase)
-        valid_loader = self._get_loader("valid", phase)
+        valid_loader = (self._get_loader("valid", phase) if self.is_main
+                        else None)
 
         steps_per_epoch = max(train_loader.steps_per_epoch(), 1)
         tx, schedule = make_optimizer(
@@ -191,12 +262,15 @@ class TrainManager:
                 state.step = step
                 start_epoch = _epoch_of(last)
                 print(f"resumed from {last} (epoch {start_epoch})")
+        if group is not None:
+            # every rank starts from rank 0's parameters and buffers
+            distributed.broadcast_(distributed.module_tensors(model), group)
 
         run_info = RunInfo(model, tx, schedule, state)
 
         train_step = make_train_step(
             model, schedule, freeze_encoder=phase.freeze_encoder,
-            loss_weights=phase.loss_weights,
+            loss_weights=phase.loss_weights, group=group,
         )
         eval_step = make_eval_step(model)
 
@@ -246,9 +320,45 @@ class TrainManager:
 
         prefetch = PrefetchLoader(train_loader, device)
         train_engine = RunEngine("train", prefetch, train_run_step,
-                                 run_info, log_info)
+                                 run_info, log_info, progress=self.is_main)
+        train_engine.state.logging = writes_logs
+        train_engine.state.log_dir = save_dir
+        train_engine.state.curr_epoch = start_epoch
+        if self.is_main:
+            self._wire_callbacks(train_engine, valid_run_step, valid_loader,
+                                 run_info, log_info, writes_logs, save_dir)
+        if group is not None:
+            # the other ranks wait while rank 0 validates and saves
+            train_engine.add_event_handler(Events.EPOCH_COMPLETED,
+                                           cb.Barrier(group))
+
+        t0 = time.perf_counter()
+        try:
+            train_engine.run(phase.nr_epochs - start_epoch)
+        finally:
+            run_info.run_s = time.perf_counter() - t0
+            run_info.wait_s = prefetch.wait_s
+            train_loader.close()
+            if valid_loader is not None:
+                valid_loader.close()
+            writer = log_info.get("tfwriter")
+            if writer is not None:
+                writer.close()
+        if group is not None and not distributed.replicas_equal(
+                distributed.module_tensors(model), group):
+            raise RuntimeError("the ranks' parameters or buffers differ "
+                               "after the phase")
+        return run_info
+
+    def _wire_callbacks(self, train_engine, valid_run_step, valid_loader,
+                        run_info, log_info, writes_logs, save_dir):
+        """The reference's callbacks, and the validation engine that the
+        train engine triggers at the end of each epoch."""
+        nr_types = self.cfg.nr_types
         valid_engine = RunEngine("valid", valid_loader, valid_run_step,
                                  run_info, log_info)
+        valid_engine.state.logging = writes_logs
+        valid_engine.state.log_dir = save_dir
 
         trigger = cb.TriggerEngine("valid")
         trigger.triggered_engine = valid_engine
@@ -280,25 +390,6 @@ class TrainManager:
         }.items():
             for c in cbs:
                 valid_engine.add_event_handler(event, c)
-
-        train_engine.state.logging = self.cfg.logging
-        train_engine.state.log_dir = save_dir
-        valid_engine.state.logging = self.cfg.logging
-        valid_engine.state.log_dir = save_dir
-        train_engine.state.curr_epoch = start_epoch
-
-        t0 = time.perf_counter()
-        try:
-            train_engine.run(phase.nr_epochs - start_epoch)
-        finally:
-            run_info.run_s = time.perf_counter() - t0
-            run_info.wait_s = prefetch.wait_s
-            train_loader.close()
-            valid_loader.close()
-            writer = log_info.get("tfwriter")
-            if writer is not None:
-                writer.close()
-        return run_info
 
 
 def _summary_writer(log_dir):

@@ -76,3 +76,24 @@ def test_port_modules_import_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 30
+
+
+def test_spawned_ranks_import_no_jax():
+    """A multi-device run's ranks (spawned processes, one a device) import
+    the port and nothing of jax, flax or the JAX package: every process of
+    a fresh 2-rank `dryrun_train_step` on the CPU reports its imports
+    (PYTHONPROFILEIMPORTTIME, inherited by the ranks)."""
+    code = ("from hover_net_tpu_torch.parallel.train_parallel import "
+            "dryrun_train_step\n"
+            "dryrun_train_step(2, ['cpu', 'cpu'])\n")
+    env = dict(os.environ, PYTHONPROFILEIMPORTTIME="1")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "dryrun_multichip ok: 2 devices" in res.stdout
+    names = [line.rsplit("|", 1)[1].strip()
+             for line in res.stderr.splitlines()
+             if line.startswith("import time:") and "|" in line]
+    # the parent and both ranks imported the rank's module
+    assert names.count("hover_net_tpu_torch.parallel.train_parallel") == 3
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN]

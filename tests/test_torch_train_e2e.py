@@ -176,14 +176,16 @@ def test_view_needs_no_matplotlib(trained, tmp_path, monkeypatch):
 
 
 def test_one_device_only_and_no_cpu_fallback(tmp_path):
+    """One device unless more are asked for (the CPU is one device; the
+    multi-device runs are tests/test_torch_train_distributed.py's), and
+    no fallback from CUDA to the CPU."""
     from hover_net_tpu_torch.config import TrainConfig
     from hover_net_tpu_torch.train.manager import TrainManager
 
-    with pytest.raises(SystemExit):
-        run_train.main(["--n_devices", "2", "--device", "cpu"])
-    with pytest.raises(ValueError, match="one device"):
-        TrainManager(TrainConfig(log_dir=str(tmp_path)), n_devices=2,
-                     device="cpu")
+    mgr = TrainManager(TrainConfig(log_dir=str(tmp_path)), device="cpu")
+    assert mgr.devices == [torch.device("cpu")] and mgr.ctx is None
+    assert TrainManager(TrainConfig(log_dir=str(tmp_path)), n_devices=2,
+                        device="cpu").n_devices == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TrainManager(TrainConfig(log_dir=str(tmp_path)))
