@@ -86,7 +86,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phase's whole run, the peak device memory and the TF32 setting, and
    the phase's own seconds by part (cli/train_step_split splits a step
    by kernel group);
-12. evaluation as a user runs it: phase 11's trained `.tar` through
+12. evaluation as a user runs it: the typed checkpoint of
+   cli/bench.train_e2e_checkpoint(nr_types=5) (400 seeded steps at batch
+   8 on deterministic algorithms, the same every run; its sha256
+   printed) through
    cli/run_infer on four held-out 1000^2 CoNSeP-style images (fast,
    width 64, bf16, --save_format all) three times: (a) the device path
    with --profile_dir, (b) --host_post_proc, (c) HNT_FUSED_ENC=1. K1 ran
@@ -140,11 +143,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    through the tile manager. Prints each phase's ms per step and
    patches/s beside the card line: two ranks sharing one card, not a
    scaling number;
-15. prints the kernel table as one JSON line (K1's times at the WSI
+15. the measurement entry points at full width (w64, bf16), each through
+   its main(argv), each printing its JSON line: the untyped recipe
+   checkpoint (trained once, its seconds and sha256 printed),
+   cli/bench at its defaults (tiles/s of the json pipeline, device ms
+   per stage, MFU, the proxy, one typed tile), cli/bench_wsi on phase
+   7's 4096^2 size with cuDNN and with HNT_FUSED_ENC=1 (K1 once per
+   window batch, K3 4 times per forward batch or never),
+   cli/bench_train at batch 16 and 4 (float32 parameters, bf16 body),
+   cli/probe_device_time --split forward (stages, prefix cuts, kernel
+   time by layer group with cuDNN and with K3),
+   cli/fused_encoder_drift --n 4 and cli/parity_drift_sweep --n 8 (AJI
+   of the device path against the host oracle >= 0.93);
+16. prints the kernel table as one JSON line (K1's times at the WSI
    window batch; each kernel's bound from its inputs and outputs at the
-   timed shape; the launches of K1 and K3 are phase 7's and phase
-   13's), the card
-   line, and last {"ok": true, "device": {...}}.
+   timed shape; the launches of K1 and K3 are phase 7's, phase 13's and
+   phase 15's), the card line, and last {"ok": true, "device": {...}}.
 
 Outputs go to build/chip_smoke/ in the checkout. On its way out, whether
 it passed or failed, the script stops every process it started (the
@@ -1617,7 +1631,7 @@ def drift(name, want, got, names, tpu_record=False):
 
 
 def check_evaluation(work, tar, device="cuda"):
-    """Phase 12: evaluation as a user runs it. Phase 11's trained `.tar`
+    """Phase 12: evaluation as a user runs it. A trained typed `.tar`
     through cli/run_infer three times on held-out images: (a) the device
     path with --profile_dir, (b) --host_post_proc, (c) HNT_FUSED_ENC=1;
     launch counts, the trace, the outputs, AJI(b, a) >= AJI_FLOOR per
@@ -1932,11 +1946,127 @@ def check_multi_device_training(work, card, device="cuda:0"):
     log(f"phase 14 in {time.perf_counter() - t_start:.1f} s")
 
 
+# ------------------------------------------------ measurement entry points
+
+def check_measurement(work, card):
+    """Phase 15: the measurement CLIs at full width (w64, bf16), each
+    through its main(argv), which prints its JSON line: the untyped
+    recipe checkpoint (cached after its first run), cli.bench at its
+    defaults, cli.bench_wsi on phase 7's size with cuDNN and with K3,
+    cli.bench_train at batch 16 and 4, cli.probe_device_time --split
+    forward, cli.fused_encoder_drift and cli.parity_drift_sweep. Checks
+    each line and returns the launches of K1 and K3 over the phase."""
+    import torch
+
+    from hover_net_tpu_torch.cli import (
+        bench,
+        bench_train,
+        bench_wsi,
+        fused_encoder_drift,
+        parity_drift_sweep,
+        probe_device_time,
+    )
+    from hover_net_tpu_torch.ops.fused_block_cuda import fused_block_apply
+    from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
+
+    root = os.path.join(work, "measure")
+    t_start = t0 = time.perf_counter()
+    ckpt = bench.train_e2e_checkpoint()
+    log(f"untyped recipe checkpoint in {time.perf_counter() - t0:.1f} s: "
+        f"{os.path.relpath(ckpt, ROOT)}, sha256 "
+        f"{bench.checkpoint_sha256(ckpt)}")
+    wsi = ["--size", str(SLIDE), "--chunk_shape", "2048", "--workdir",
+           os.path.join(root, "wsi")]
+    runs = [  # (name, main, argv, HNT_FUSED_ENC set)
+        ("bench", bench.main, ["--work_dir", os.path.join(root, "bench")],
+         False),
+        ("bench_wsi (cuDNN)", bench_wsi.main, wsi, False),
+        ("bench_wsi (K3)", bench_wsi.main, wsi, True),
+        ("bench_train batch 16", bench_train.main,
+         ["--steps", "30", "--batch", "16"], False),
+        ("bench_train batch 4", bench_train.main,
+         ["--steps", "30", "--batch", "4"], False),
+        ("probe_device_time --split forward", probe_device_time.main,
+         ["--split", "forward"], False),
+        ("fused_encoder_drift", fused_encoder_drift.main, ["--n", "4"],
+         False),
+        ("parity_drift_sweep", parity_drift_sweep.main,
+         ["--n", "8", "--csv", os.path.join(root, "parity.csv")], False),
+    ]
+    proc_tail.launches = fused_block_apply.launches = 0
+    res, secs = {}, {}
+    for name, main_fn, argv, fused in runs:
+        t0 = time.perf_counter()
+        with bench.fused_enc(fused):
+            res[name] = main_fn(argv)
+        secs[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    k1, k3 = proc_tail.launches, fused_block_apply.launches
+
+    b = res["bench"]
+    log(f"bench: {b['value']:.3f} tiles/s (median of 5; best "
+        f"{b['e2e_real_content_best']:.3f}), {b['e2e_n_instances']} nuclei "
+        f"a tile, multi-image {b['e2e_multi_image']:.3f}, proxy "
+        f"{b['proxy_1kx1k_tiles_per_sec']:.3f} tiles/s; device "
+        f"{b['device_ms_per_tile']:.3f} ms a tile ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in b["device_stage_ms"].items())
+        + f"), MFU {b['pipeline_mfu_pct']:.2f} %; typed tile "
+        f"{b['typed_tile']['wall_ms']:.3f} ms ({card})")
+    if b["e2e_n_instances"] < 100 or not b["device_ms_per_tile"]:
+        raise AssertionError("bench: too few nuclei or no device time")
+    for name, fused in (("bench_wsi (cuDNN)", False), ("bench_wsi (K3)", True)):
+        w = res[name]
+        log(f"{name}: {w['value']:.3f} Mpx/s, {w['wall_s']:.3f} s, "
+            f"{w['n_nuclei']} nuclei, {w['n_forward_batches']} forward and "
+            f"{w['n_window_batches']} window batches, K1 {w['k1_launches']}, "
+            f"K3 {w['k3_launches']}; " + ", ".join(
+                f"{k} {v:.3f}" for k, v in w["timings"].items()))
+        want_k3 = 4 * w["n_forward_batches"] if fused else 0
+        if w["k1_launches"] != w["n_window_batches"] or w["k1_launches"] == 0 \
+                or w["k3_launches"] != want_k3 or w["n_nuclei"] < 1000:
+            raise AssertionError(f"{name}: launches or nuclei off")
+    for batch in (16, 4):
+        t = res[f"bench_train batch {batch}"]
+        log(f"bench_train batch {batch}: {t['ms_per_step']:.3f} ms a step, "
+            f"{t['value']:.1f} samples/s, loss {t['final_loss']:.4f}, "
+            f"parameters {t['param_dtype']}, peak {t['peak_gib']:.2f} GiB")
+        if t["param_dtype"] != "torch.float32":
+            raise AssertionError("bench_train: parameters are not float32")
+    p = res["probe_device_time --split forward"]
+    log("probe_device_time: stages " + ", ".join(
+        f"{k} {v:.3f}" for k, v in p["stages_ms"].items())
+        + "; forward split " + ", ".join(
+            f"{k} {v:.3f}" for k, v in p["split_ms"].items()))
+    for name, w in p["layer_groups"].items():
+        if w is None or (name == "fused_enc"
+                         and w["groups_ms"].get("K3 (d0..d2)", 0) <= 0):
+            raise AssertionError(f"probe_device_time: no {name} window")
+    d = res["fused_encoder_drift"]
+    q = res["parity_drift_sweep"]
+    log(f"fused_encoder_drift: K3 vs standard AJI mean "
+        f"{d['fused_vs_standard']['aji_mean']:.5f} min "
+        f"{d['fused_vs_standard']['aji_min']:.5f}; bf16 floor "
+        f"{d['floor_standard_vs_float32']['aji_mean']:.5f} min "
+        f"{d['floor_standard_vs_float32']['aji_min']:.5f}; parity_drift_sweep"
+        f" AJI mean {q['aji_mean']:.5f} min {q['aji_min']:.5f} (the JAX "
+        f"package's TPU record {TPU_DRIFT_RECORD[0]}, {TPU_DRIFT_RECORD[1]})")
+    if q["aji_min"] < AJI_FLOOR:
+        raise AssertionError(f"parity_drift_sweep: AJI {q['aji_min']} below "
+                             f"{AJI_FLOOR}")
+    log(f"phase 15 in {time.perf_counter() - t_start:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()) + f"; K1 launches {k1}, "
+        f"K3 launches {k3}")
+    if not k1 or not k3:
+        raise AssertionError("phase 15 launched no K1 or no K3")
+    return k1, k3
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    t_main = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} ({card}), torch "
@@ -1979,12 +2109,24 @@ def main():
     del canvas
     torch.cuda.empty_cache()
 
-    check_evaluation(work, check_training(work))
+    check_training(work)
+    torch.cuda.empty_cache()
+    from hover_net_tpu_torch.cli import bench
+
+    t0 = time.perf_counter()
+    eval_tar = bench.train_e2e_checkpoint(nr_types=5)
+    log(f"phase 12 checkpoint (the typed recipe of cli/bench.py) in "
+        f"{time.perf_counter() - t0:.1f} s: sha256 "
+        f"{bench.checkpoint_sha256(eval_tar)}")
+    check_evaluation(work, eval_tar)
     torch.cuda.empty_cache()
     k1_mesh, k3_mesh = check_multi_device(work, dirs, card)
     k1_launches += k1_mesh
     k3_launches += k3_mesh
     check_multi_device_training(work, card)
+    k1_m, k3_m = check_measurement(work, card)
+    k1_launches += k1_m
+    k3_launches += k3_m
 
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda",
@@ -2007,6 +2149,7 @@ def main():
         entry("post_proc_stages", "post_proc_tail.cu",
               "scripts/probe_pp_stages.py:73", k4["launches"], k4),
     ]
+    log(f"chip_smoke: all phases in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,36 +27,15 @@ import statistics
 import time
 from typing import Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
 from ..data.tiling import bucket_grid_dim, prepare_tile_patching
 from ..ops.post_proc_cuda import SKIPS, proc_tail
 from ..ops.post_proc_device import energy_inputs
-from ..ops.targets import gen_instance_hv_map
+from .bench import synth_pred_map
 
 WINDOW, STEP = 256, 164  # fast mode's patch input and output
 REPS = 20  # timed calls per variant
-
-
-def synth_pred_map(h: int, w: int, n_nuclei: int = 1200, seed: int = 0
-                   ) -> np.ndarray:
-    """[H, W, 3] (np prob, hv x, hv y) of `n_nuclei` disc nuclei of
-    radius 5-10 (later discs do not overwrite earlier ones): the JAX
-    bench's synthetic map (bench.py, synth_pred_map)."""
-    rng = np.random.default_rng(seed)
-    inst = np.zeros((h, w), np.int32)
-    yy, xx = np.mgrid[-12:13, -12:13]
-    k = 1
-    for _ in range(n_nuclei):
-        cy, cx = rng.integers(14, h - 14), rng.integers(14, w - 14)
-        r = rng.integers(5, 11)
-        m = (yy**2 + xx**2) <= r * r
-        sub = inst[cy - 12 : cy + 13, cx - 12 : cx + 13]
-        sub[m & (sub == 0)] = k
-        k += 1
-    hv = gen_instance_hv_map(inst, inst.shape)
-    return np.dstack([(inst > 0).astype(np.float32), hv[..., 0], hv[..., 1]])
 
 
 def canvas_inputs(size: int, device) -> tuple:

@@ -17,7 +17,10 @@ net_desc.py):
 
 `cfg.dtype` is the compute dtype of the body. The heads (`u0.conv`) run
 in `cfg.head_dtype`, float32 as in the JAX package unless asked otherwise
-(the data-parallel exactness check runs them in float64).
+(the data-parallel exactness check runs them in float64). A float32 model
+run under `torch.autocast(dtype=torch.bfloat16)` computes its body in
+bf16 on float32 parameters, as the JAX package's bf16 training does, and
+its heads still in `cfg.head_dtype` (`make_train_step(autocast_dtype=)`).
 """
 
 from __future__ import annotations
@@ -109,7 +112,7 @@ class _U1(nn.Module):
 
 class _U0(nn.Module):
     """BN -> ReLU -> 1x1 head with bias, run in the conv's dtype
-    (`cfg.head_dtype`)."""
+    (`cfg.head_dtype`), also inside an autocast body."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -117,7 +120,13 @@ class _U0(nn.Module):
         self.conv = _conv(cin, cout, 1, bias=True)
 
     def forward(self, x):
-        return self.conv(F.relu(self.bn(x)).to(self.conv.weight.dtype))
+        x = F.relu(self.bn(x)).to(self.conv.weight.dtype)
+        dev = x.device.type
+        if torch.amp.is_autocast_available(dev) and \
+                torch.is_autocast_enabled(dev):
+            with torch.autocast(dev, enabled=False):
+                return self.conv(x)
+        return self.conv(x)
 
 
 class DecoderBranch(nn.Module):

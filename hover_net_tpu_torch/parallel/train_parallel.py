@@ -32,6 +32,7 @@ cuDNN's convolutions keep PyTorch's default TF32 (see PERF.md).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable, Dict, Optional
@@ -101,7 +102,8 @@ def _one_hot(labels: torch.Tensor, n: int,
 
 def make_train_step(model: HoVerNet, schedule: Callable[[int], float],
                     freeze_encoder: bool = False,
-                    loss_weights: Optional[dict] = None, group=None):
+                    loss_weights: Optional[dict] = None, group=None,
+                    autocast_dtype: Optional[torch.dtype] = None):
     """Returns (state, batch) -> (state, (terms, viz)), updating `state`
     in place.
 
@@ -115,6 +117,11 @@ def make_train_step(model: HoVerNet, schedule: Callable[[int], float],
     batch, and terms and `grad_norm` are the global batch's (the viz
     snapshots are the shard's first two samples: on rank 0 the global
     batch's when a shard holds two or more).
+
+    autocast_dtype: None, or the body's compute dtype under
+    `torch.autocast` (bf16: the JAX package's bf16 training, float32
+    parameters and Adam state, a bf16 body, the heads and the loss in
+    `head_dtype`).
     """
     nr_types, dtype = model.cfg.nr_types, model.cfg.head_dtype
     reduce = (None if group is None
@@ -128,8 +135,11 @@ def make_train_step(model: HoVerNet, schedule: Callable[[int], float],
         if nr_types is not None:
             true["tp"] = _one_hot(batch["tp_map"], nr_types, dtype)
 
-        with global_batch_stats(net, reduce):
-            out = net(_nchw(batch["img"]), freeze_encoder=freeze_encoder)
+        img = _nchw(batch["img"])
+        body = (torch.autocast(img.device.type, dtype=autocast_dtype)
+                if autocast_dtype is not None else contextlib.nullcontext())
+        with global_batch_stats(net, reduce), body:
+            out = net(img, freeze_encoder=freeze_encoder)
         pred = {"np": F.softmax(out["np"].to(dtype), dim=1),
                 "hv": out["hv"].to(dtype)}
         if nr_types is not None:

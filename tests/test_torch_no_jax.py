@@ -1,6 +1,7 @@
 """The port stands alone: nothing in hover_net_tpu_torch/ or chip_smoke.py
-imports jax, flax or the JAX package hover_net_tpu, directly or through
-another module."""
+imports jax, flax, the JAX package hover_net_tpu, or the JAX package's
+measurement scripts (bench.py and scripts/ at the repository root),
+directly or through another module."""
 
 import ast
 import os
@@ -10,7 +11,10 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "hover_net_tpu")
+FORBIDDEN = ("jax", "flax", "hover_net_tpu", "bench", "scripts")
+# the port's counterparts of bench.py and scripts/, under cli/
+MEASUREMENT_CLIS = ("bench", "bench_wsi", "bench_train", "probe_device_time",
+                    "fused_encoder_drift", "parity_drift_sweep")
 
 
 def port_sources():
@@ -52,6 +56,24 @@ def test_forbidden_imports_are_found(tmp_path):
         "jax.numpy", "hover_net_tpu.ops", "flax"]
 
 
+def test_jax_bench_and_scripts_imports_are_found(tmp_path):
+    """An import of bench.py or of a module of scripts/ is found; the
+    port's own cli.bench is not."""
+    src = ("import bench\nfrom scripts import probe_forward_split\n"
+           "from scripts.bench_wsi import main\n"
+           "from hover_net_tpu_torch.cli import bench\n"
+           "from hover_net_tpu_torch.cli.bench import synth_pred_map\n")
+    path = tmp_path / "probe.py"
+    path.write_text(src)
+    assert [n for _, n in forbidden_imports(str(path))] == [
+        "bench", "scripts", "scripts.bench_wsi"]
+
+
+@pytest.mark.parametrize("name", MEASUREMENT_CLIS)
+def test_measurement_clis_are_in_the_checked_sources(name):
+    assert f"hover_net_tpu_torch/cli/{name}.py" in port_sources()
+
+
 @pytest.mark.parametrize("path", port_sources())
 def test_source_imports_no_jax_package(path):
     assert forbidden_imports(path) == [], path
@@ -60,7 +82,7 @@ def test_source_imports_no_jax_package(path):
 def test_port_modules_import_without_jax():
     """A fresh interpreter (tests/conftest.py imports jax in this one)
     imports every module of the port and chip_smoke.py; neither jax nor
-    any module of the JAX package is loaded."""
+    any module of the JAX package or of its scripts is loaded."""
     code = (
         "import pkgutil, sys\n"
         "import hover_net_tpu_torch as p\n"
@@ -68,8 +90,8 @@ def test_port_modules_import_without_jax():
         "p.__name__ + '.')]\n"
         "for n in names: __import__(n)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'hover_net_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
