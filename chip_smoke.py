@@ -153,8 +153,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    cli/bench_train at batch 16 and 4 (float32 parameters, bf16 body),
    cli/probe_device_time --split forward (stages, prefix cuts, kernel
    time by layer group with cuDNN and with K3),
-   cli/fused_encoder_drift --n 4 and cli/parity_drift_sweep --n 8 (AJI
-   of the device path against the host oracle >= 0.93);
+   cli/fused_encoder_drift --n 4 (one forward batch a tile, K3 4 times
+   in each fused one) and cli/parity_drift_sweep --n 8 (AJI of the
+   device path against the host oracle >= 0.93);
 16. prints the kernel table as one JSON line (K1's times at the WSI
    window batch; each kernel's bound from its inputs and outputs at the
    timed shape; the launches of K1 and K3 are phase 7's, phase 13's and
@@ -2053,6 +2054,15 @@ def check_measurement(work, card):
     if q["aji_min"] < AJI_FLOOR:
         raise AssertionError(f"parity_drift_sweep: AJI {q['aji_min']} below "
                              f"{AJI_FLOOR}")
+    # the K3 pair is K3's only where every fused pass ran K3: one forward
+    # batch a 1000^2 tile (49 patches), 4 launches a batch
+    log(f"fused_encoder_drift: K3 launches {d['k3_launches']} in "
+        f"{d['fused_forward_batches']} fused forward batches over "
+        f"{d['n_tiles']} tiles")
+    if d["fused_forward_batches"] != d["n_tiles"] \
+            or d["k3_launches"] != 4 * d["fused_forward_batches"]:
+        raise AssertionError("fused_encoder_drift: the fused passes did not "
+                             "all run K3")
     log(f"phase 15 in {time.perf_counter() - t_start:.1f} s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items()) + f"; K1 launches {k1}, "
         f"K3 launches {k3}")

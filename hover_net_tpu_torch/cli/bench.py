@@ -19,7 +19,8 @@ readouts:
   from a seeded `torch.Generator`, float32 on deterministic cuDNN and
   cuBLAS algorithms (`deterministic_training`), so that every run on a
   card gives the same weights. The `.tar` is cached under
-  build/hover_net_tpu_torch/bench/, keyed by a hash of the recipe: the
+  build/hover_net_tpu_torch/bench/, keyed by a hash of the recipe's
+  arguments and of the files whose code trains it (`RECIPE_SOURCES`): the
   first run trains it (70-95 s on an NVIDIA H100 80GB HBM3, 700.00 W),
   later runs load it;
 - the headline `e2e_real_content`: tiles/s of `run_infer tile
@@ -89,7 +90,13 @@ BENCH_DIR = os.path.join(BUILD_DIR, "bench")
 # peak of PERF.md's kernel bounds
 BF16_PEAK_FLOPS = 989e12
 RECIPE_LR = 3e-4
-RECIPE_VERSION = 1  # bump when the recipe's code changes what it trains
+# the package's files whose code trains the recipe's checkpoint: a change
+# to any of them changes the cache key, so a cached `.tar` is always the
+# current code's
+RECIPE_SOURCES = ("cli/bench.py", "parallel/train_parallel.py",
+                  "models/hovernet.py", "models/blocks.py", "ops/losses.py",
+                  "ops/targets.py", "data/train_pipeline.py",
+                  "models/checkpoints.py", "utils/crops.py")
 AHEAD = 4  # recipe batches drawn ahead of the training step
 # bench.py's repetitions of the secondary readouts: the multi-image rate
 # (median of 3 reps of 10 tiles), the proxy (best of 3 reps of 10 tiles),
@@ -217,16 +224,28 @@ def checkpoint_sha256(path: str) -> str:
     return state_sha256(load_torch_tar(path))
 
 
+def recipe_sources_sha256() -> str:
+    """sha256 over the bytes of RECIPE_SOURCES, in order."""
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    h = hashlib.sha256()
+    for rel in RECIPE_SOURCES:
+        with open(os.path.join(pkg, rel), "rb") as f:
+            h.update(rel.encode())
+            h.update(f.read())
+    return h.hexdigest()
+
+
 def train_e2e_checkpoint(steps=400, batch=8, seed=0, width=64, nr_types=None,
                          device="cuda", ckpt_dir: Optional[str] = None) -> str:
     """Path of the recipe's `.tar` (see the module docstring), trained on
     `device` at the first call and cached in `ckpt_dir` (default
-    build/hover_net_tpu_torch/bench/) under a hash of the recipe and the
-    device type; a later call with the same recipe trains nothing and
-    returns the cached path. Prints the loss every 100 steps, the
-    training's wall and host seconds and the state dict's sha256."""
+    build/hover_net_tpu_torch/bench/) under a hash of the recipe, the
+    device type and the bytes of `RECIPE_SOURCES`; a later call with the
+    same recipe and code trains nothing and returns the cached path.
+    Prints the loss every 100 steps, the training's wall and host seconds
+    and the state dict's sha256."""
     dev = resolve_device(device)
-    recipe = dict(version=RECIPE_VERSION, steps=steps, batch=batch,
+    recipe = dict(sources=recipe_sources_sha256(), steps=steps, batch=batch,
                   seed=seed, width=width, nr_types=nr_types, lr=RECIPE_LR,
                   mode="fast", device=dev.type, conv="tf32, deterministic")
     key = hashlib.sha256(json.dumps(recipe, sort_keys=True).encode()

@@ -27,7 +27,10 @@ kept 5-7 nuclei a tile in all three forwards, where the pipeline finds
 hundreds: the black padding is far outside what the net was trained on.
 On the CPU the gate keeps the standard forward (K3 runs on a GPU only),
 so there the K3 pair reads 1. The JSON line, last, holds K3 against the
-standard bf16 forward, the floor, and K3 against float32.
+standard bf16 forward, the floor, and K3 against float32, and the K3
+launches of the fused passes beside their forward batches (K3 runs 4
+times a batch, so `k3_launches` = 4 * `fused_forward_batches` shows that
+every fused pass ran K3; 0 where the gate keeps the standard forward).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ..infer.base import resolve_device
+from ..ops.fused_block_cuda import fused_block_apply
 from .bench import (
     add_common_args,
     card_line,
@@ -66,6 +70,19 @@ def tile_labels(mgr, img, fused: bool = False) -> np.ndarray:
     return mgr.finalize_prediction(img, dev_out, pull_pred_map=False)[1]
 
 
+def count_forward_batches(mgr):
+    """[n]: n grows by one at each forward batch of `mgr`'s model (d3
+    runs once a batch in the standard and in the fused forward)."""
+    n = [0]
+
+    def hook(*_):
+        n[0] += 1
+
+    for dev in mgr.devices:
+        mgr.model_on(dev).d3.register_forward_hook(hook)
+    return n
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_common_args(ap)
@@ -81,13 +98,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     rng = np.random.default_rng(5)
     scores = {k: ([], [], []) for k in PAIRS}
+    batches = count_forward_batches(mgrs[torch.bfloat16])
+    k3_launches = fused_batches = 0
     for i in range(args.n):
         n_nuclei = int(rng.integers(200, 2400))
         img, _ = synth_nuclei_image(args.size, args.size,
                                     seed=int(rng.integers(1 << 30)),
                                     n_nuclei=n_nuclei)
-        maps = {"standard": tile_labels(mgrs[torch.bfloat16], img),
-                "fused": tile_labels(mgrs[torch.bfloat16], img, fused=True)}
+        maps = {"standard": tile_labels(mgrs[torch.bfloat16], img)}
+        k3, nb = fused_block_apply.launches, batches[0]
+        maps["fused"] = tile_labels(mgrs[torch.bfloat16], img, fused=True)
+        k3_launches += fused_block_apply.launches - k3
+        fused_batches += batches[0] - nb
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             maps["float32"] = tile_labels(mgrs[torch.float32], img)
         counts = {k: len(np.unique(v[v > 0])) for k, v in maps.items()}
@@ -102,7 +124,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             f"{k} {v}" for k, v in counts.items()) + "; AJI " +
             ", ".join(line), file=sys.stderr, flush=True)
 
-    out = {"n_tiles": args.n, "tile_size": args.size}
+    out = {"n_tiles": args.n, "tile_size": args.size,
+           "k3_launches": k3_launches, "fused_forward_batches": fused_batches}
     for name, (ajis, deltas, counts) in scores.items():
         out[name] = summarize(ajis, deltas, counts)
     out.update(checkpoint_sha256=checkpoint_sha256(ckpt), width=args.width,

@@ -121,7 +121,11 @@ def make_train_step(model: HoVerNet, schedule: Callable[[int], float],
     autocast_dtype: None, or the body's compute dtype under
     `torch.autocast` (bf16: the JAX package's bf16 training, float32
     parameters and Adam state, a bf16 body, the heads and the loss in
-    `head_dtype`).
+    `head_dtype`). The autocast closes inside the step, around the
+    forward only: a caller's autocast around the whole step would also
+    run the loss's Sobel convolution (`ops/losses.gradient_hv`) in bf16,
+    where the JAX step computes the loss in float32
+    (tests/test_torch_train_bf16.py).
     """
     nr_types, dtype = model.cfg.nr_types, model.cfg.head_dtype
     reduce = (None if group is None

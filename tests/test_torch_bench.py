@@ -167,17 +167,39 @@ def _flatten(tree, prefix=()):
     return out
 
 
+def no_training(*a, **k):
+    raise AssertionError("the cached recipe was trained again")
+
+
 def test_recipe_checkpoint_is_cached(recipe, monkeypatch):
     kw, path = recipe
-
-    def no_training(*a, **k):
-        raise AssertionError("the cached recipe was trained again")
-
     monkeypatch.setattr(bench, "make_train_step", no_training)
     assert bench.train_e2e_checkpoint(**kw) == path
     # another recipe is another file
     with pytest.raises(AssertionError, match="trained again"):
         bench.train_e2e_checkpoint(**dict(kw, steps=4))
+
+
+def test_recipe_cache_key_covers_the_training_code(recipe, monkeypatch):
+    """The key hashes the files of the code the recipe runs: an edit to
+    one of them trains anew."""
+    import sys
+
+    from hover_net_tpu_torch.models import blocks
+    from hover_net_tpu_torch.ops import losses, targets
+
+    pkg = os.path.dirname(os.path.dirname(bench.__file__))
+    used = [sys.modules[f.__module__].__file__ for f in (
+        bench.train_e2e_checkpoint, bench.make_train_step, HoVerNet,
+        blocks.ResidualBlock, losses.hovernet_loss, targets.gen_targets,
+        bench.device_prefetch, bench.save_train_tar, bench.cropping_center)]
+    assert {os.path.relpath(f, pkg) for f in used} == set(bench.RECIPE_SOURCES)
+
+    kw, path = recipe
+    monkeypatch.setattr(bench, "recipe_sources_sha256", lambda: "edited")
+    monkeypatch.setattr(bench, "make_train_step", no_training)
+    with pytest.raises(AssertionError, match="trained again"):
+        bench.train_e2e_checkpoint(**kw)
 
 
 # ------------------------------------------------------- the slice
@@ -301,6 +323,18 @@ def test_drift_aji_equals_jax_get_fast_aji(module):
     empty = np.zeros((8, 8), np.int32)
     assert module.pair_aji(empty, empty) == 1.0
     assert module.pair_aji(empty, np.ones_like(empty)) == 0.0
+
+
+def test_fused_encoder_drift_counts_its_k3_launches(forced_tar, capsys):
+    """One forward batch a tile in each pass; on the CPU the gate keeps
+    the standard forward, so the fused passes launch no K3."""
+    out = fused_encoder_drift.main(["--device", "cpu", "--width", str(WIDTH),
+                                    "--size", "200", "--n", "2",
+                                    "--model_path", forced_tar])
+    capsys.readouterr()
+    assert out["fused_forward_batches"] == 2
+    assert out["k3_launches"] == 0
+    assert out["fused_vs_standard"]["aji_min"] == 1.0
 
 
 # ------------------------------------------------------- the CLIs' lines
