@@ -156,10 +156,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    cli/fused_encoder_drift --n 4 (one forward batch a tile, K3 4 times
    in each fused one) and cli/parity_drift_sweep --n 8 (AJI of the
    device path against the host oracle >= 0.93);
-16. prints the kernel table as one JSON line (K1's times at the WSI
+16. original mode (270^2 -> 80^2 patches, the JAX package's default
+   training configuration) at full width, typed (nr_types=5): (a) K1
+   against its plain version on 1000^2 synthetic nuclei mirrored over the
+   exact 13 x 13 grid's 1040^2 map and over the 1120^2 map of the 14 x 14
+   canonical grid the tile path runs, identical labels, median times of
+   both; (b) cli/run_train at TrainConfig's defaults (original mode, the
+   two default phases, one epoch each) on phase 11's 540^2 patches, with
+   phase 11's checks (finite losses, the freeze cut, each phase's `.tar`
+   and stats.json) and one original-mode width-8 step on the card against
+   the CPU with the body in float64 (1e-5 relative); (c) cli/eval_consep,
+   the CoNSeP recipe, on phase 12's held-out images in the CoNSeP layout
+   with (b)'s `.tar`: K1 once per image and identical to its plain version
+   on each image's stitched map, every json and mat written, both
+   compute_stats lines printed; then the warm json pipeline's tiles/s and
+   per-tile device split; (d) WSIInferManager in original mode on a
+   2048^2 pseudo-slide: K1 once per window batch, the json written, a
+   second call skips the slide; prints the phase's seconds by part;
+17. prints the kernel table as one JSON line (K1's times at the WSI
    window batch; each kernel's bound from its inputs and outputs at the
-   timed shape; the launches of K1 and K3 are phase 7's, phase 13's and
-   phase 15's), the card line, and last {"ok": true, "device": {...}}.
+   timed shape; the launches of K1 and K3 are phase 7's, phase 13's,
+   phase 15's and, for K1, phase 16's), the card line, and last
+   {"ok": true, "device": {...}}.
 
 Outputs go to build/chip_smoke/ in the checkout. On its way out, whether
 it passed or failed, the script stops every process it started (the
@@ -231,9 +249,9 @@ def synth_pred(inst):
     return np.dstack([(inst > 0).astype(np.float32), hv])
 
 
-def mirrored_canvas(pred):
-    """Reflect-101 a SRC_HW^2 map over the CANVAS^2 canvas, + valid mask."""
-    rr = np.arange(CANVAS)
+def mirrored_canvas(pred, canvas=CANVAS):
+    """Reflect-101 a SRC_HW^2 map over the canvas^2 canvas, + valid mask."""
+    rr = np.arange(canvas)
     idx = np.where(rr < SRC_HW, rr, 2 * SRC_HW - 2 - rr)
     valid = (rr < SRC_HW)[:, None] & (rr < SRC_HW)[None, :]
     return pred[idx][:, idx], valid
@@ -1391,31 +1409,45 @@ def step_stats(info, batch):
             sum(waits) / total, batch * len(info.step_s) / info.run_s)
 
 
-def train_cpu_vs_cuda(patch_dir):
-    """One phase-2 step at width 8 from the same weights and batch on the
-    card and on the CPU, two ways: the model body in float64 (heads and
-    loss float32, as in the float64 parity test of
+# the w8 step checks: (case, body dtype, cuDNN TF32, bound on the relative
+# difference of the loss terms; grad_norm too with the float64 body)
+STEP_CASES = (("float64 body", "float64", False, 1e-5),
+              ("float32, TF32 on", "float32", True, 2e-2))
+
+
+def train_cpu_vs_cuda(patch_dir, mode="fast", cases=STEP_CASES):
+    """One phase-2 step at width 8 in `mode` from the same weights and
+    batch (the mode's input and target crops of the 540^2 patches) on the
+    card and on the CPU, for each case: the model body in float64 (heads
+    and loss float32, as in the float64 parity test of
     tests/test_torch_train_step.py), and float32 with cuDNN's default
-    TF32, as the trainer runs. Returns {case: {term: relative
-    difference}}."""
+    TF32, as the trainer runs. Prints each case's relative differences
+    and fails past its bound: in float32 the random net's gradient is
+    chaotic (grad_norm moves by ~1e-2 between any two float32 runs), so
+    only the float64 body holds grad_norm."""
     import torch
 
     from hover_net_tpu_torch.data.train_pipeline import (
         PatchDataset,
         TrainLoader,
     )
-    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+    from hover_net_tpu_torch.models.hovernet import (
+        MODE_SHAPES,
+        HoVerNet,
+        HoVerNetConfig,
+    )
     from hover_net_tpu_torch.parallel import train_parallel as tp
 
+    win, out_sz = MODE_SHAPES[mode]
     loader = TrainLoader(PatchDataset([patch_dir]), batch_size=4,
-                         input_shape=(256, 256), mask_shape=(164, 164),
+                         input_shape=(win, win), mask_shape=(out_sz, out_sz),
                          mode="valid", with_type=True, num_workers=0)
     batch = {k: torch.from_numpy(v) for k, v in next(iter(loader)).items()}
-    start = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5, width=8),
+    start = HoVerNet(HoVerNetConfig(mode=mode, nr_types=5, width=8),
                      generator=torch.Generator().manual_seed(4))
 
     def terms(device, body):
-        net = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5, width=8,
+        net = HoVerNet(HoVerNetConfig(mode=mode, nr_types=5, width=8,
                                       dtype=body))
         net.load_state_dict(start.state_dict())
         tx, schedule = tp.make_optimizer()
@@ -1424,14 +1456,96 @@ def train_cpu_vs_cuda(patch_dir):
         _, (out, _) = step(state, {k: v.to(device) for k, v in batch.items()})
         return {k: float(v) for k, v in out.items()}
 
-    rel = {}
-    for case, body, tf32 in (("float64 body", torch.float64, False),
-                             ("float32, TF32 on", torch.float32, True)):
+    for case, body, tf32, tol in cases:
+        body = getattr(torch, body)
         want = terms("cpu", body)
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
             got = terms("cuda", body)
-        rel[case] = {k: abs(got[k] - w) / abs(w) for k, w in want.items()}
-    return rel
+        rel = {k: abs(got[k] - w) / abs(w) for k, w in want.items()}
+        checked = {k: v for k, v in rel.items()
+                   if k != "grad_norm" or body == torch.float64}
+        worst = max(checked.items(), key=lambda kv: kv[1])
+        log(f"w8 step ({mode}, {win}^2 -> {out_sz}^2) cuda vs cpu, {case}: "
+            f"largest relative difference {worst[1]:.2e} ({worst[0]}; bound "
+            f"{tol:g}); " + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+        if worst[1] > tol:
+            raise AssertionError("the card's train step disagrees with "
+                                 "the CPU's")
+
+
+def run_default_phases(root, cfg_path, mode, width, device="cuda"):
+    """cli/run_train on `cfg_path` (the two default phases, one epoch
+    each, writing under root/logs; a model of `width`), then the checks of
+    phase 11: every loss finite; after phase 1 the frozen parameters
+    bit-identical to the trainer's seeded start, every other parameter
+    and d1..d3's BN statistics moved; after phase 2 every parameter
+    moved; each phase's `.tar` and stats.json written. Prints each
+    phase's ms per step, rates, loader share, and the peak device memory.
+    Returns (the two `.tar` paths, the training's wall seconds)."""
+    import torch
+
+    from hover_net_tpu_torch.cli import run_train
+    from hover_net_tpu_torch.config import TrainConfig, default_phases
+    from hover_net_tpu_torch.models.checkpoints import load_torch_tar
+    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+
+    phases = default_phases(mode)
+    torch.cuda.reset_peak_memory_stats()
+    log(f"$ python -m hover_net_tpu_torch.cli.run_train --config {cfg_path}"
+        f" (model_mode={mode}; cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32})")
+    t0 = time.perf_counter()
+    infos = run_train.main(["--config", cfg_path, "--device", device])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"training ({mode}): 2 phases in {wall:.1f} s wall, peak device "
+        f"memory {peak:.2f} GiB")
+    for idx, (info, phase) in enumerate(zip(infos, phases)):
+        batch = phase.batch_size["train"]
+        if len(info.losses) < 8 or not np.all(np.isfinite(info.losses)):
+            raise AssertionError(f"phase {idx}: {len(info.losses)} steps, "
+                                 f"losses {info.losses}")
+        ms, rate, share, run_rate = step_stats(info, batch)
+        log(f"train ({mode}) phase {idx} (freeze_encoder="
+            f"{phase.freeze_encoder}, batch {batch}): {len(info.losses)} "
+            f"steps, {ms:.3f} ms per step (median after 2), per-step rate "
+            f"{rate:.1f} patches/s, loader wait {100 * share:.1f} % of the "
+            f"step; {run_rate:.1f} patches/s over the phase's whole run of "
+            f"{info.run_s:.1f} s (validation, checkpoints and the workers' "
+            f"start included); overall_loss {info.losses[0]:.4f} -> "
+            f"{info.losses[-1]:.4f}")
+
+    logs = os.path.join(root, "logs")
+    tars = [os.path.join(logs, f"{i:02d}", "net_epoch=1.tar")
+            for i in range(2)]
+    for i, tar in enumerate(tars):
+        with open(os.path.join(logs, f"{i:02d}", "stats.json")) as f:
+            stats = json.load(f)
+        if not os.path.exists(tar) or "valid-np_dice" not in stats["1"]:
+            raise AssertionError(f"phase {i}: no checkpoint or no stats")
+    start = HoVerNet(HoVerNetConfig(mode=mode, nr_types=5, width=width),
+                     generator=torch.Generator().manual_seed(
+                         TrainConfig().seed)).state_dict()
+    p0, p1 = load_torch_tar(tars[0]), load_torch_tar(tars[1])
+    params = [k for k, _ in HoVerNet(HoVerNetConfig(
+        mode=mode, nr_types=5, width=8)).named_parameters()]
+    frozen = [k for k in params
+              if k.startswith(("d1.", "d2.", "d3.", "d0.units."))]
+    stats_d13 = [k for k in p0 if k.startswith(("d1.", "d2.", "d3."))
+                 and k.endswith(("running_mean", "running_var"))]
+    bad = ([k for k in frozen if not torch.equal(p0[k], start[k])]
+           + [k for k in params if k not in frozen
+              and torch.equal(p0[k], start[k])]
+           + [k for k in stats_d13 if torch.equal(p0[k], start[k])]
+           + [k for k in params if torch.equal(p1[k], p0[k])])
+    log(f"freeze cut ({mode}): {len(frozen)} frozen parameters unchanged, "
+        f"{len(params) - len(frozen)} trained, {len(stats_d13)} d1..d3 BN "
+        f"statistics moved in phase 1; all {len(params)} moved in phase 2; "
+        f"{len(bad)} off")
+    if bad:
+        raise AssertionError(f"the freeze cut is off at {bad[:5]}")
+    return tars, wall
 
 
 def check_training(work, device="cuda"):
@@ -1443,11 +1557,8 @@ def check_training(work, device="cuda"):
     manager, and holds one width-8 step on the card against the CPU."""
     import torch
 
-    from hover_net_tpu_torch.cli import extract_patches, run_train
-    from hover_net_tpu_torch.config import default_phases
+    from hover_net_tpu_torch.cli import extract_patches
     from hover_net_tpu_torch.infer.tile import TileInferManager
-    from hover_net_tpu_torch.models.checkpoints import load_torch_tar
-    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
 
     root = os.path.join(work, "train")
     t_start = t0 = time.perf_counter()
@@ -1477,62 +1588,8 @@ def check_training(work, device="cuda"):
             f"valid_dir_list=[{patch_dirs['valid']!r}])\n"
             "for phase in config.phases:\n"
             "    phase.nr_epochs = 1\n")
-    phases = default_phases("fast")
-    torch.cuda.reset_peak_memory_stats()
-    log(f"$ python -m hover_net_tpu_torch.cli.run_train --config {cfg_path}"
-        f" (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
-    t0 = time.perf_counter()
-    infos = run_train.main(["--config", cfg_path, "--device", device])
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"training: 2 phases in {wall:.1f} s wall, peak device memory "
-        f"{peak:.2f} GiB")
-    for idx, (info, phase) in enumerate(zip(infos, phases)):
-        batch = phase.batch_size["train"]
-        if len(info.losses) < 8 or not np.all(np.isfinite(info.losses)):
-            raise AssertionError(f"phase {idx}: {len(info.losses)} steps, "
-                                 f"losses {info.losses}")
-        ms, rate, share, run_rate = step_stats(info, batch)
-        log(f"train phase {idx} (freeze_encoder={phase.freeze_encoder}, "
-            f"batch {batch}): {len(info.losses)} steps, {ms:.3f} ms per "
-            f"step (median after 2), per-step rate {rate:.1f} patches/s, "
-            f"loader wait {100 * share:.1f} % of the step; "
-            f"{run_rate:.1f} patches/s over the phase's whole run of "
-            f"{info.run_s:.1f} s (validation, checkpoints and the workers' "
-            f"start included); overall_loss {info.losses[0]:.4f} -> "
-            f"{info.losses[-1]:.4f}")
-
-    logs = os.path.join(root, "logs")
-    tars = [os.path.join(logs, f"{i:02d}", "net_epoch=1.tar")
-            for i in range(2)]
-    for i, tar in enumerate(tars):
-        with open(os.path.join(logs, f"{i:02d}", "stats.json")) as f:
-            stats = json.load(f)
-        if not os.path.exists(tar) or "valid-np_dice" not in stats["1"]:
-            raise AssertionError(f"phase {i}: no checkpoint or no stats")
-    start = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5,
-                                    width=TRAIN_WIDTH),
-                     generator=torch.Generator().manual_seed(10)
-                     ).state_dict()
-    p0, p1 = load_torch_tar(tars[0]), load_torch_tar(tars[1])
-    params = [k for k, _ in HoVerNet(HoVerNetConfig(
-        mode="fast", nr_types=5, width=8)).named_parameters()]
-    frozen = [k for k in params
-              if k.startswith(("d1.", "d2.", "d3.", "d0.units."))]
-    stats_d13 = [k for k in p0 if k.startswith(("d1.", "d2.", "d3."))
-                 and k.endswith(("running_mean", "running_var"))]
-    bad = ([k for k in frozen if not torch.equal(p0[k], start[k])]
-           + [k for k in params if k not in frozen
-              and torch.equal(p0[k], start[k])]
-           + [k for k in stats_d13 if torch.equal(p0[k], start[k])]
-           + [k for k in params if torch.equal(p1[k], p0[k])])
-    log(f"freeze cut: {len(frozen)} frozen parameters unchanged, "
-        f"{len(params) - len(frozen)} trained, {len(stats_d13)} d1..d3 BN "
-        f"statistics moved in phase 1; all {len(params)} moved in phase 2; "
-        f"{len(bad)} off")
-    if bad:
-        raise AssertionError(f"the freeze cut is off at {bad[:5]}")
+    tars, wall = run_default_phases(root, cfg_path, "fast", TRAIN_WIDTH,
+                                    device)
 
     img_dir = os.path.join(root, "tile_in")
     os.makedirs(img_dir)
@@ -1551,19 +1608,7 @@ def check_training(work, device="cuda"):
 
     t0 = time.perf_counter()
     checks_s = t0 - t_start - data_s - wall
-    rel = train_cpu_vs_cuda(patch_dirs["valid"])
-    for case, tol in (("float64 body", 1e-5), ("float32, TF32 on", 2e-2)):
-        # in float32 the random net's gradient is chaotic (grad_norm moves
-        # by ~1e-2 between any two float32 runs); the float64 body holds it
-        checked = {k: v for k, v in rel[case].items()
-                   if k != "grad_norm" or case == "float64 body"}
-        worst = max(checked.items(), key=lambda kv: kv[1])
-        log(f"w8 step cuda vs cpu, {case}: largest relative difference "
-            f"{worst[1]:.2e} ({worst[0]}; bound {tol:g}); "
-            + ", ".join(f"{k} {v:.1e}" for k, v in rel[case].items()))
-        if worst[1] > tol:
-            raise AssertionError("the card's train step disagrees with "
-                                 "the CPU's")
+    train_cpu_vs_cuda(patch_dirs["valid"])
     now = time.perf_counter()
     log(f"phase 11 in {now - t_start:.1f} s: data {data_s:.1f}, training "
         f"{wall:.1f}, checkpoint checks and tile {checks_s:.1f}, w8 cuda vs "
@@ -2071,6 +2116,273 @@ def check_measurement(work, card):
     return k1, k3
 
 
+# ------------------------------------------------------- original mode
+
+ORIG_SLIDE = 2048   # side of phase 16's WSI pseudo-slide
+ORIG_SLIDE_NUCLEI = 400  # phase 7's density
+
+
+def orig_canvases():
+    """(the exact patch grid's stitched side, the side the tile path
+    runs): a SRC_HW^2 tile takes a 13 x 13 grid of 270^2 patches at a step
+    of 80 (1040^2 of outputs), which the tile manager rounds up to its
+    canonical class, 14 x 14 (1120^2), as the JAX package does."""
+    from hover_net_tpu_torch.data.tiling import (
+        bucket_grid_dim,
+        prepare_tile_patching,
+    )
+
+    grid = int(prepare_tile_patching((SRC_HW, SRC_HW), 270, 80)[2][0])
+    return grid * 80, bucket_grid_dim(grid) * 80
+
+
+def orig_k1(dev):
+    """Phase 16 (a): K1 against its plain version on a SRC_HW^2 map of
+    synthetic nuclei mirrored over each original-mode canvas with its
+    valid mask: identical labels; median times of both; the bound.
+    Returns the times at the canvas the tile path runs."""
+    import torch
+
+    from hover_net_tpu_torch.ops import post_proc_cuda as k1
+    from hover_net_tpu_torch.ops.post_proc_device import energy_inputs
+
+    src = synth_pred(synth_inst(SRC_HW, SRC_HW, N_NUCLEI, 16))
+    for canvas in orig_canvases():
+        pred, valid = mirrored_canvas(src, canvas)
+        blb, sob = energy_inputs(
+            torch.from_numpy(np.ascontiguousarray(pred))[None].to(dev),
+            torch.from_numpy(valid)[None].to(dev))
+        got = k1.proc_tail(blb, sob)
+        want = k1.proc_tail_reference(blb, sob)
+        n_diff = int((got != want).sum())
+        n_inst = len(torch.unique(want)) - 1
+        max_err = int((got.long() - want.long()).abs().max())
+        ms = median_ms(lambda: k1.proc_tail(blb, sob), 20)
+        plain_ms = median_ms(lambda: k1.proc_tail_reference(blb, sob), 5)
+        b = bound(tensor_bytes(blb, sob, got))
+        log(f"(a) K1 vs plain at {tuple(blb.shape)}: {n_inst} instances, "
+            f"{n_diff} labels differ; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms (median, CUDA events); bound "
+            f"{b[0] * 1e3:.2f} us ({b[1]})")
+        if n_diff or n_inst < 100:
+            raise AssertionError(f"K1 disagrees with its plain version at "
+                                 f"{canvas}^2, or found too few nuclei")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err,
+            "bound": b}
+
+
+def orig_training(work, device):
+    """Phase 16 (b): cli/run_train at TrainConfig's defaults (original
+    mode, 5 types, width 64, the two default phases), one epoch each, on
+    phase 11's 540^2 patches, with phase 11's checks; one original-mode
+    w8 step on the card against the CPU, body in float64. Returns (the
+    last phase's `.tar`, the model's width)."""
+    from hover_net_tpu_torch.config import TrainConfig
+
+    root = os.path.join(work, "orig", "train")
+    os.makedirs(root)
+    patches = os.path.join(work, "train", "patches")
+    cfg_path = os.path.join(root, "config.py")
+    with open(cfg_path, "w") as f:
+        f.write(
+            "from hover_net_tpu_torch.config import TrainConfig\n"
+            f"config = TrainConfig(log_dir={os.path.join(root, 'logs')!r}, "
+            f"train_dir_list=[{os.path.join(patches, 'train')!r}], "
+            f"valid_dir_list=[{os.path.join(patches, 'valid')!r}])\n"
+            "for phase in config.phases:\n"
+            "    phase.nr_epochs = 1\n")
+    cfg = TrainConfig()
+    log(f"(b) TrainConfig defaults: model_mode {cfg.model_mode}, nr_types "
+        f"{cfg.nr_types}, width {cfg.width}, act {cfg.act_shape}, out "
+        f"{cfg.out_shape}, batches "
+        f"{[p.batch_size['train'] for p in cfg.phases]}")
+    tars, _ = run_default_phases(root, cfg_path, cfg.model_mode, cfg.width,
+                                 device)
+    train_cpu_vs_cuda(os.path.join(patches, "valid"), cfg.model_mode,
+                      STEP_CASES[:1])
+    return tars[1], cfg.width
+
+
+STAT_PREFIX = "["  # compute_stats prints its means as one numpy array line
+
+
+def orig_eval(work, tar, width, device):
+    """Phase 16 (c): cli/eval_consep on phase 12's held-out images in the
+    CoNSeP layout (raw types), original mode, width 64, with (b)'s `.tar`;
+    K1 held against its plain version on each image's stitched map inside
+    the run; then the json pipeline once more on the warm manager for the
+    tile's device split and tiles/s. Returns K1's launches."""
+    import contextlib
+    import io
+
+    from hover_net_tpu_torch.cli import eval_consep
+    from hover_net_tpu_torch.cli.bench import forward_flops
+    from hover_net_tpu_torch.infer import steps
+    from hover_net_tpu_torch.ops import post_proc_cuda as k1
+
+    consep = os.path.join(work, "orig", "CoNSeP")
+    for sub in ("Images", "Labels"):
+        shutil.copytree(os.path.join(work, "eval", "consep", sub),
+                        os.path.join(consep, "Test", sub))
+    names = [f"img{i}" for i in range(EVAL_IMAGES)]
+    canvas = orig_canvases()[1]
+    n_patches = (canvas // 80) ** 2
+    compared = []
+
+    def k1_and_plain(blb, sob, **kw):
+        got = k1.proc_tail(blb, sob, **kw)
+        compared.append((tuple(blb.shape), int(
+            (got != k1.proc_tail_reference(blb, sob)).sum())))
+        return got
+
+    out = os.path.join(work, "orig", "eval_out")
+    argv = [consep, tar, out, "original", str(width), "--device", device]
+    log(f"$ python -m hover_net_tpu_torch.cli.eval_consep {' '.join(argv)}")
+    printed = io.StringIO()
+    steps.proc_tail = k1_and_plain
+    k1.proc_tail.launches = 0
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            res = eval_consep.main(argv)
+        secs = time.perf_counter() - t0
+    finally:
+        steps.proc_tail = k1.proc_tail
+    launches = k1.proc_tail.launches
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        log(f"eval_consep | {line}")
+    stats = [line for line in lines if line.startswith(STAT_PREFIX)]
+    log(f"(c) eval_consep: {EVAL_IMAGES} images of {SRC_HW}^2 ({n_patches} "
+        f"patches of 270^2 each, a {canvas}^2 canvas) in {secs:.3f} s; K1 "
+        f"launches {launches}; "
+        f"K1 vs plain on each stitched map {compared}")
+    if launches != EVAL_IMAGES or len(compared) != EVAL_IMAGES \
+            or any(n for _, n in compared) \
+            or any(shape != (1, canvas, canvas) for shape, _ in compared):
+        raise AssertionError("eval_consep: K1 did not run once an image, or "
+                             "disagrees with its plain version")
+    for n in names:
+        for sub, ext in (("json", "json"), ("mat", "mat"), ("true", "mat")):
+            if not os.path.exists(os.path.join(out, sub, f"{n}.{ext}")):
+                raise AssertionError(f"eval_consep wrote no {sub}/{n}.{ext}")
+    if len(stats) != 2 or not np.all(np.isfinite(res["instance"])):
+        raise AssertionError(f"eval_consep printed {stats}")
+
+    mgr = res["manager"]
+    k1.proc_tail.launches = 0
+    t0 = time.perf_counter()
+    written = mgr.process_file_list(os.path.join(consep, "Test", "Images"),
+                                    os.path.join(work, "orig", "tile_json"),
+                                    save_format="json")
+    wall = time.perf_counter() - t0
+    launches += k1.proc_tail.launches
+    if written != EVAL_IMAGES or k1.proc_tail.launches != EVAL_IMAGES:
+        raise AssertionError("the warm json run did not write every image "
+                             "through K1")
+    split = {k: statistics.median(t.get(k, float("nan"))
+                                  for t in mgr.timings[-EVAL_IMAGES:])
+             for k in ("forward", "energy", "post_proc_tail", "tables",
+                       "finalize_ms")}
+    nuclei = [t["n_nuclei"] for t in mgr.timings[-EVAL_IMAGES:]]
+    flops = forward_flops(mgr.model, n_patches)[0]
+    log(f"(c) original-mode tile, warm json pipeline: {EVAL_IMAGES / wall:.3f}"
+        f" tiles/s ({wall:.3f} s for {EVAL_IMAGES}); per tile (median, ms): "
+        f"forward over {n_patches} patches {split['forward']:.3f} "
+        f"({flops / 1e12:.2f} TFLOP by FlopCounterMode, "
+        f"{flops / split['forward'] / 1e9:.1f} TFLOP/s), energy "
+        f"{split['energy']:.3f}, K1 {split['post_proc_tail']:.3f}, tables "
+        f"{split['tables']:.3f}, host finalize {split['finalize_ms']:.3f}; "
+        f"nuclei {nuclei}")
+    return launches
+
+
+def orig_wsi(work, tar, width, device):
+    """Phase 16 (d): WSIInferManager in original mode (5 types, width 64,
+    bf16) with (b)'s `.tar` on an ORIG_SLIDE^2 pseudo-slide built as phase
+    7 builds its slide: K1 once per window batch, the json written, a
+    second call skips the slide. Returns K1's launches."""
+    import cv2
+
+    from hover_net_tpu_torch.infer.wsi import WSIInferManager
+    from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
+
+    root = os.path.join(work, "orig", "wsi")
+    dirs = {k: os.path.join(root, k) for k in ("slides", "masks", "out")}
+    for d in dirs.values():
+        os.makedirs(d)
+    inst = synth_inst(ORIG_SLIDE, ORIG_SLIDE, ORIG_SLIDE_NUCLEI, seed=17)
+    img = np.full((ORIG_SLIDE, ORIG_SLIDE, 3), (230, 200, 220), np.uint8)
+    img[inst > 0] = (120, 60, 150)
+    noise = np.random.default_rng(17).integers(0, 20, img.shape, np.uint8)
+    np.save(os.path.join(dirs["slides"], "slide.npy"), img - noise)
+    cv2.imwrite(os.path.join(dirs["masks"], "slide.png"),
+                np.full((ORIG_SLIDE // 16,) * 2, 255, np.uint8))
+    mgr = WSIInferManager(
+        model_path=tar, mode="original", nr_types=5, width=width,
+        batch_size=K3_BATCH, device=device, chunk_shape=ORIG_SLIDE // 2,
+        tile_shape=ORIG_SLIDE // 2, ambiguous_size=128, proc_mag=40,
+        type_info_path=os.path.join(ROOT, "type_info.json"),
+        cache_path=os.path.join(root, "cache"))
+    out = os.path.join(dirs["out"], "slide.json")
+    proc_tail.launches = 0
+    t0 = time.perf_counter()
+    written = mgr.process_wsi_list(dirs["slides"], dirs["out"],
+                                   input_mask_dir=dirs["masks"])
+    wall = time.perf_counter() - t0
+    launches = proc_tail.launches
+    if written != 1 or not os.path.exists(out):
+        raise AssertionError("the original-mode WSI run wrote no json")
+    with open(out) as f:
+        n_nuc = len(json.load(f)["nuc"])
+    log(f"(d) wsi (original, typed): {ORIG_SLIDE}^2 slide in {wall:.3f} s "
+        f"wall: {mgr.n_forward_batches} forward batches of <= "
+        f"{mgr.batch_size} patches of 270^2, {mgr.n_window_batches} "
+        f"post-proc window batches, {n_nuc} nuclei; K1 launches {launches}; "
+        "seconds " + ", ".join(f"{k} {v:.3f}"
+                               for k, v in mgr.timings["slide"].items()))
+    if launches != mgr.n_window_batches or launches == 0 \
+            or mgr.n_forward_batches == 0:
+        raise AssertionError(f"K1 ran {launches} times for "
+                             f"{mgr.n_window_batches} window batches")
+    mtime = os.path.getmtime(out)
+    if mgr.process_wsi_list(dirs["slides"], dirs["out"]) != 0 \
+            or os.path.getmtime(out) != mtime:
+        raise AssertionError("the second WSI call did not skip the slide")
+    log("(d) wsi resume: the second call skipped the written slide")
+    return launches
+
+
+def check_original_mode(work, card, device="cuda"):
+    """Phase 16: original mode (270^2 -> 80^2, the JAX package's default
+    training configuration) on the card at full width, typed: (a) K1 at
+    the original-mode canvas, (b) training at TrainConfig's defaults, (c)
+    the CoNSeP recipe (cli/eval_consep), (d) WSI. Returns (K1's launches
+    on the path, K1's times at the canvas)."""
+    import torch
+
+    t_start = time.perf_counter()
+    secs = {}
+    k1_res = orig_k1(torch.device(device))
+    secs["k1"] = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    tar, width = orig_training(work, device)
+    torch.cuda.empty_cache()
+    secs["training"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = orig_eval(work, tar, width, device)
+    torch.cuda.empty_cache()
+    secs["eval_consep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches += orig_wsi(work, tar, width, device)
+    torch.cuda.empty_cache()
+    secs["wsi"] = time.perf_counter() - t0
+    log(f"phase 16 in {time.perf_counter() - t_start:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; K1 launches {launches} ({card})")
+    return launches, k1_res
+
+
 def main():
     import torch
 
@@ -2137,6 +2449,8 @@ def main():
     k1_m, k3_m = check_measurement(work, card)
     k1_launches += k1_m
     k3_launches += k3_m
+    k1_o, _ = check_original_mode(work, card)
+    k1_launches += k1_o
 
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda",

@@ -3,7 +3,9 @@
 Counterpart of hover_net_tpu/infer/tile.py. Each image is reflect-padded
 and zero-extended to its canonical patch grid exactly as the JAX package
 does (prepare_tile_patching, bucket_grid_dim), so the canvas matches it
-pixel for pixel; the device pipeline (infer/steps.make_tile_pipeline)
+pixel for pixel (cut to the canonical canvas where the reflect padding
+reaches past it, a case in which the JAX manager raises); the device
+pipeline (infer/steps.make_tile_pipeline)
 returns the per-instance tables, and the host builds the json from them
 with the native contour tracer. Every map is post-processed whole, so
 the JAX package's seam guard has no counterpart here.
@@ -123,10 +125,17 @@ class TileInferManager(base.InferManagerBase):
         rows, cols = bucket_grid_dim(grid[0]), bucket_grid_dim(grid[1])
         if (rows, cols) != grid:
             # zero-extend the canvas to the canonical grid; the pipeline
-            # mirrors the source over it before post-processing
-            ext_h = rows * step + (win - step) - padded.shape[0]
-            ext_w = cols * step + (win - step) - padded.shape[1]
-            padded = np.pad(padded, ((0, ext_h), (0, ext_w), (0, 0)))
+            # mirrors the source over it before post-processing. The
+            # reflect padding may already reach past the canonical canvas
+            # (a 1000^2 tile in original mode pads to 1405^2 for a 1310^2
+            # canvas): the patches never read past it, so cut it there
+            # (np.pad refuses the negative extension the JAX manager asks
+            # for in that case)
+            can_h = rows * step + (win - step)
+            can_w = cols * step + (win - step)
+            padded = np.pad(padded[:can_h, :can_w], (
+                (0, max(can_h - padded.shape[0], 0)),
+                (0, max(can_w - padded.shape[1], 0)), (0, 0)))
             ys = np.arange(0, rows * step, step, dtype=np.int32)
             xs = np.arange(0, cols * step, step, dtype=np.int32)
             yy, xx = np.meshgrid(ys, xs, indexing="ij")

@@ -14,7 +14,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "hover_net_tpu", "bench", "scripts")
 # the port's counterparts of bench.py and scripts/, under cli/
 MEASUREMENT_CLIS = ("bench", "bench_wsi", "bench_train", "probe_device_time",
-                    "fused_encoder_drift", "parity_drift_sweep")
+                    "fused_encoder_drift", "parity_drift_sweep",
+                    "eval_consep", "eval_consep_dryrun",
+                    "bench_finalize_pool")
 
 
 def port_sources():

@@ -112,16 +112,18 @@ def test_post_proc_and_tables_match_jax(typed):
                                       np.asarray(tab_j[key]), err_msg=key)
 
 
-def forced_foreground_tar(path, nr_types=5, seed=2):
+def forced_foreground_tar(path, nr_types=5, seed=2, mode="fast"):
     """A width-8 reference `.tar` of a seeded JAX init whose np head is a
     constant foreground, so both packages find instances (cut by the hv
     maps of the random net)."""
     from hover_net_tpu.models.checkpoints import save_torch_tar
 
-    cfg = JaxConfig(mode="fast", nr_types=nr_types, width=WIDTH)
+    cfg = JaxConfig(mode=mode, nr_types=nr_types, width=WIDTH)
     model = JaxHoVerNet(cfg)
+    size = cfg.patch_input_shape
     variables = jax.jit(lambda: model.init(
-        jax.random.PRNGKey(seed), jnp.zeros((1, 256, 256, 3)), train=False))()
+        jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 3)),
+        train=False))()
     variables = jax.tree_util.tree_map(np.asarray, variables)
     head = dict(variables["params"]["decoder_np"]["u0_conv"])
     head["kernel"] = np.zeros_like(head["kernel"])
