@@ -20,7 +20,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1000^2 images written as json, then one typed image (nr_types=5);
    K1 must have run once per image and the json must come from the
    device tables through the native contour tracer; prints the per-tile
-   split of device and host time;
+   split of device and host time. From this phase on, every inference
+   manager the run builds (those inside the CLIs too), each replica its
+   `model_on` makes (one on the host here: every slot of a one-card run
+   shares the loaded model) and each model K3's packs are folded from
+   must hold every BatchNorm's weight, bias and running statistics in
+   float32 under the bf16 body, as flax keeps them (checked as each
+   appears; the counts are printed after phase 16);
 5. the width-64 bf16 forward agrees with its float32 version on one
    patch; finalize on real nuclei: the 1148^2 synthetic map through the
    kernel, the tables and the host finalize gives the instances of the
@@ -102,7 +108,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    CoNSeP's loader merges them), the drift of (a) against (b) and of (c)
    against (a) per image with mean and min (beside the JAX package's TPU
    record) and of (a) and (c) against (d), the standard forward in
-   float32 (TF32 off: the bf16 noise floor of the checkpoint), the host
+   float32 (TF32 off: the bf16 noise floor of the checkpoint), each of
+   the last three beside its record from before the bf16 body kept its
+   BatchNorms in float32, the host
    post-processing seconds per image, the trained model's summary
    totals and the phase's own seconds by part;
 13. multi-device inference on one card: the mesh of infer/wsi.py and the
@@ -145,17 +153,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    scaling number;
 15. the measurement entry points at full width (w64, bf16), each through
    its main(argv), each printing its JSON line: the untyped recipe
-   checkpoint (trained once, its seconds and sha256 printed),
-   cli/bench at its defaults (tiles/s of the json pipeline, device ms
-   per stage, MFU, the proxy, one typed tile), cli/bench_wsi on phase
+   checkpoint (trained once, its seconds and sha256 printed beside the
+   recorded one, as phase 12's typed one is), cli/bench at its defaults
+   (tiles/s of the json pipeline, device ms per stage, MFU, the proxy,
+   one typed tile; the forward's ms and the tiles/s beside their record
+   from before the BatchNorms were float32),
+   cli/bench_wsi on phase
    7's 4096^2 size with cuDNN and with HNT_FUSED_ENC=1 (K1 once per
    window batch, K3 4 times per forward batch or never),
    cli/bench_train at batch 16 and 4 (float32 parameters, bf16 body),
    cli/probe_device_time --split forward (stages, prefix cuts, kernel
    time by layer group with cuDNN and with K3),
    cli/fused_encoder_drift --n 4 (one forward batch a tile, K3 4 times
-   in each fused one) and cli/parity_drift_sweep --n 8 (AJI of the
-   device path against the host oracle >= 0.93);
+   in each fused one; its three AJI pairs beside their record) and
+   cli/parity_drift_sweep --n 8 (AJI of the device path against the
+   host oracle >= 0.93);
 16. original mode (270^2 -> 80^2 patches, the JAX package's default
    training configuration) at full width, typed (nr_types=5): (a) K1
    against its plain version on 1000^2 synthetic nuclei mirrored over the
@@ -264,6 +276,72 @@ def synth_image(seed):
     img[inst > 0] = (120, 60, 150)
     noise = np.random.default_rng(seed).integers(0, 20, img.shape)
     return (img - noise).astype(np.uint8)
+
+
+# ------------------------------------------------- BatchNorm in float32
+
+# every bf16-body model the run builds whose BatchNorms were checked:
+# the managers' loaded models, the replicas `model_on` makes, and the
+# models K3's packs are folded from (ids, so a model counts once)
+BN_CHECKED = {"manager": set(), "replica": set(), "fused": set()}
+
+
+def check_bn_float32(model, what):
+    """Under a bf16 body every BatchNorm of `model` holds float32 weight,
+    bias and running statistics, as flax keeps them; raises otherwise.
+    Returns whether the model has a bf16 body."""
+    import torch
+
+    from hover_net_tpu_torch.models.blocks import BatchNorm2d
+
+    if model.cfg.dtype != torch.bfloat16:
+        return False
+    bad = [name for name, m in model.named_modules()
+           if isinstance(m, BatchNorm2d) and any(
+               t.dtype != torch.float32 for t in (
+                   m.weight, m.bias, m.running_mean, m.running_var))]
+    if bad:
+        raise AssertionError(f"{what}: BatchNorm tensors not float32 in "
+                             f"{len(bad)} modules, e.g. {bad[:3]}")
+    return True
+
+
+def guard_bn_float32():
+    """From here on, every inference manager the run builds (the CLIs'
+    and the measurement entry points' inside them included), every
+    replica its `model_on` makes and every model K3's pack is folded from
+    go through check_bn_float32 as they appear."""
+    from hover_net_tpu_torch.infer.base import InferManagerBase
+    from hover_net_tpu_torch.models import encoder_fused
+
+    init, model_on = InferManagerBase.__init__, InferManagerBase.model_on
+    pack = encoder_fused.pack_encoder
+
+    def checked(kind, model):
+        if check_bn_float32(model, kind):
+            BN_CHECKED[kind].add(id(model))
+        return model
+
+    def checked_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        checked("manager", self.model)
+
+    def checked_model_on(self, device):
+        return checked("replica" if device != self.device else "manager",
+                       model_on(self, device))
+
+    def checked_pack(model):
+        checked("fused", model)
+        return pack(model)
+
+    InferManagerBase.__init__ = checked_init
+    InferManagerBase.model_on = checked_model_on
+    encoder_fused.pack_encoder = checked_pack
+
+
+def log_bn_checked(where):
+    log(f"BatchNorm in float32 under the bf16 body, {where}: "
+        + ", ".join(f"{len(v)} {k} models" for k, v in BN_CHECKED.items()))
 
 
 # ------------------------------------------------------------- phases
@@ -1627,6 +1705,39 @@ EVAL_SEED = 400
 # TPU v5 lite), printed beside the port's: AJI mean, min
 TPU_DRIFT_RECORD = (0.981, 0.960)
 AJI_FLOOR = 0.93    # the JAX package's composed parity floor, device vs host
+# the record of the same checks while the bf16 body still rounded its
+# BatchNorms to bf16 (runs of this script on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, PERF.md §6): AJI (mean, min) of each drift pair of phase 12
+# (typed, 4 images) and of cli/fused_encoder_drift in phase 15 (untyped,
+# 4 tiles), min None where it was not recorded; cli/bench's forward and
+# tiles/s; the recipe checkpoints' sha256 (training is float32, which
+# the BatchNorm dtype rule leaves alone, so they should not change)
+BN_BF16_DRIFT = {
+    "typed": {"fused_vs_standard": (0.94195, 0.92402),
+              "floor_standard_vs_float32": (0.86615, 0.77386),
+              "fused_vs_float32": (0.872, None)},
+    "untyped": {"fused_vs_standard": (0.98508, 0.96926),
+                "floor_standard_vs_float32": (0.96908, 0.95875),
+                "fused_vs_float32": (0.967, None)},
+}
+BN_BF16_BENCH = {"forward_ms": "115.4-116.6", "tiles_per_s": "6.892-7.429"}
+RECIPE_SHA256 = {"typed": "468ba087", "untyped": "2a69ddd3"}
+
+
+def log_beside_record(what, mean, low, record, card):
+    log(f"{what}: AJI mean {mean:.5f}, min {low:.5f} ({card}); recorded "
+        f"with the BatchNorms in bf16: mean {record[0]}, min "
+        f"{record[1] or 'not recorded'} (NVIDIA H100 80GB HBM3, 700.00 W)")
+
+
+def log_sha256(what, path, secs, recorded_prefix):
+    from hover_net_tpu_torch.cli import bench
+
+    sha = bench.checkpoint_sha256(path)
+    same = ("the same as" if sha.startswith(recorded_prefix)
+            else "differs from")
+    log(f"{what} in {secs:.1f} s: sha256 {sha}, {same} the recorded "
+        f"{recorded_prefix}...")
 
 
 def write_truth(root):
@@ -1776,11 +1887,20 @@ def check_evaluation(work, tar, device="cuda"):
         "priority-flood watershed): " + ", ".join(f"{s:.3f}" for s in host_s))
     ajis = drift("parity_drift_sweep (a) device vs (b) host oracle",
                  maps["b"], maps["a"], names, tpu_record=True)
-    drift("fused_encoder_drift (c) K3 vs (a) standard forward", maps["a"],
-          maps["c"], names)
-    drift("bf16 floor (a) standard bf16 vs (d) standard float32", maps["d"],
-          maps["a"], names)
-    drift("(c) K3 bf16 vs (d) standard float32", maps["d"], maps["c"], names)
+    pairs = {
+        "fused_vs_standard": drift(
+            "fused_encoder_drift (c) K3 vs (a) standard forward", maps["a"],
+            maps["c"], names),
+        "floor_standard_vs_float32": drift(
+            "bf16 floor (a) standard bf16 vs (d) standard float32",
+            maps["d"], maps["a"], names),
+        "fused_vs_float32": drift(
+            "(c) K3 bf16 vs (d) standard float32", maps["d"], maps["c"],
+            names)}
+    for key, a in pairs.items():
+        log_beside_record(f"phase 12 (typed, {EVAL_IMAGES} images) {key}",
+                          statistics.mean(a), min(a),
+                          BN_BF16_DRIFT["typed"][key], card_line())
     if min(ajis) < AJI_FLOOR or min(n for n, _ in maps["a"].values()) < 10:
         raise AssertionError(f"device vs host oracle AJI {ajis} below "
                              f"{AJI_FLOOR}, or too few nuclei")
@@ -2018,9 +2138,8 @@ def check_measurement(work, card):
     root = os.path.join(work, "measure")
     t_start = t0 = time.perf_counter()
     ckpt = bench.train_e2e_checkpoint()
-    log(f"untyped recipe checkpoint in {time.perf_counter() - t0:.1f} s: "
-        f"{os.path.relpath(ckpt, ROOT)}, sha256 "
-        f"{bench.checkpoint_sha256(ckpt)}")
+    log_sha256(f"untyped recipe checkpoint {os.path.relpath(ckpt, ROOT)}",
+               ckpt, time.perf_counter() - t0, RECIPE_SHA256["untyped"])
     wsi = ["--size", str(SLIDE), "--chunk_shape", "2048", "--workdir",
            os.path.join(root, "wsi")]
     runs = [  # (name, main, argv, HNT_FUSED_ENC set)
@@ -2060,6 +2179,12 @@ def check_measurement(work, card):
         f"{b['typed_tile']['wall_ms']:.3f} ms ({card})")
     if b["e2e_n_instances"] < 100 or not b["device_ms_per_tile"]:
         raise AssertionError("bench: too few nuclei or no device time")
+    log(f"bf16 tile forward (BatchNorm in float32): "
+        f"{b['device_stage_ms']['forward']:.3f} ms a tile, {b['value']:.3f} "
+        f"tiles/s ({card}); recorded with the BatchNorms in bf16: forward "
+        f"{BN_BF16_BENCH['forward_ms']} ms, "
+        f"{BN_BF16_BENCH['tiles_per_s']} tiles/s (NVIDIA H100 80GB HBM3, "
+        f"700.00 W)")
     for name, fused in (("bench_wsi (cuDNN)", False), ("bench_wsi (K3)", True)):
         w = res[name]
         log(f"{name}: {w['value']:.3f} Mpx/s, {w['wall_s']:.3f} s, "
@@ -2099,6 +2224,11 @@ def check_measurement(work, card):
     if q["aji_min"] < AJI_FLOOR:
         raise AssertionError(f"parity_drift_sweep: AJI {q['aji_min']} below "
                              f"{AJI_FLOOR}")
+    for key in BN_BF16_DRIFT["untyped"]:
+        log_beside_record(f"fused_encoder_drift (untyped, {d['n_tiles']} "
+                          f"tiles) {key}", d[key]["aji_mean"],
+                          d[key]["aji_min"], BN_BF16_DRIFT["untyped"][key],
+                          card)
     # the K3 pair is K3's only where every fused pass ran K3: one forward
     # batch a 1000^2 tile (49 patches), 4 launches a batch
     log(f"fused_encoder_drift: K3 launches {d['k3_launches']} in "
@@ -2401,7 +2531,12 @@ def main():
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    guard_bn_float32()
     _, mgr = run_slice(work)
+    # every slot of this one-card run is cuda:0 and shares the loaded
+    # model, so a replica is made on the host to show model_on's copy
+    mgr.model_on(torch.device("cpu"))
+    mgr._replicas.clear()
     check_forward(mgr)
     finalize_real_nuclei(mgr, k1["canvas"])
     del mgr, k1["canvas"]
@@ -2437,9 +2572,8 @@ def main():
 
     t0 = time.perf_counter()
     eval_tar = bench.train_e2e_checkpoint(nr_types=5)
-    log(f"phase 12 checkpoint (the typed recipe of cli/bench.py) in "
-        f"{time.perf_counter() - t0:.1f} s: sha256 "
-        f"{bench.checkpoint_sha256(eval_tar)}")
+    log_sha256("phase 12 checkpoint (the typed recipe of cli/bench.py)",
+               eval_tar, time.perf_counter() - t0, RECIPE_SHA256["typed"])
     check_evaluation(work, eval_tar)
     torch.cuda.empty_cache()
     k1_mesh, k3_mesh = check_multi_device(work, dirs, card)
@@ -2451,6 +2585,9 @@ def main():
     k3_launches += k3_m
     k1_o, _ = check_original_mode(work, card)
     k1_launches += k1_o
+    log_bn_checked("all phases")
+    if not all(BN_CHECKED.values()):
+        raise AssertionError(f"a kind of model went unchecked: {BN_CHECKED}")
 
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda",

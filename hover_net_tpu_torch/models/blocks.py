@@ -88,7 +88,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         """Normalise by the mean and the biased variance of the global
         batch, in two passes (the sum and count, then the sum of squared
         deviations: no E[x^2] - E[x]^2 cancellation), and fold both into
-        the running stats."""
+        the running stats. The output takes the input's dtype, as
+        `F.batch_norm` gives it."""
         c = x.shape[1]
         count = x.new_full((1,), x.numel() // c)
         sums = self.reduce(torch.cat([x.sum(dim=(0, 2, 3)), count]))
@@ -101,7 +102,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-        return dev * scale[None, :, None, None] + self.bias[None, :, None, None]
+        out = dev * scale[None, :, None, None] + self.bias[None, :, None, None]
+        return out.to(x.dtype)
 
 
 @contextlib.contextmanager

@@ -48,7 +48,9 @@ Packs = Dict[str, Tuple[Packed, List[Packed]]]
 
 
 def _bn_affine(bn) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inference BatchNorm as per-channel (scale, offset), folded in f32."""
+    """Inference BatchNorm as per-channel (scale, offset), folded in f32
+    from the BN's float32 tensors (a bf16-body model keeps them in
+    float32), as the JAX `_bn_affine` folds them."""
     inv = 1.0 / torch.sqrt(bn.running_var.float() + BN_EPS)
     scale = bn.weight.float() * inv
     offset = bn.bias.float() - bn.running_mean.float() * scale

@@ -17,10 +17,15 @@ net_desc.py):
 
 `cfg.dtype` is the compute dtype of the body. The heads (`u0.conv`) run
 in `cfg.head_dtype`, float32 as in the JAX package unless asked otherwise
-(the data-parallel exactness check runs them in float64). A float32 model
-run under `torch.autocast(dtype=torch.bfloat16)` computes its body in
-bf16 on float32 parameters, as the JAX package's bf16 training does, and
-its heads still in `cfg.head_dtype` (`make_train_step(autocast_dtype=)`).
+(the data-parallel exactness check runs them in float64). Under a body
+narrower than float32 (bf16) every BatchNorm keeps its weight, bias and
+running statistics in float32, as flax's BatchNorm does (param_dtype):
+it normalises a bf16 input in float32 and rounds its output to bf16 once
+(blocks.BatchNorm2d), and a float32 checkpoint loads into it unrounded.
+A float32 model run under `torch.autocast(dtype=torch.bfloat16)`
+computes its body in bf16 on float32 parameters, as the JAX package's
+bf16 training does, and its heads still in `cfg.head_dtype`
+(`make_train_step(autocast_dtype=)`).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from torch import nn
 
 from ..utils.crops import crop_op
 from .blocks import (
+    BatchNorm2d,
     ConvBNRelu,
     DenseBlock,
     ResidualBlock,
@@ -176,6 +182,12 @@ class HoVerNet(nn.Module):
             self.to(cfg.dtype)
             for branch in self.decoder.values():
                 branch.u0.conv.to(cfg.head_dtype)
+            if torch.finfo(cfg.dtype).bits < 32:
+                # flax keeps BN's parameters and statistics in float32
+                # (param_dtype) under a narrower body
+                for m in self.modules():
+                    if isinstance(m, BatchNorm2d):
+                        m.float()
 
     @torch.no_grad()
     def _init_weights(self, generator):

@@ -1,9 +1,10 @@
 """Contour overlays of the tile manager and the training panels (host).
 
-The port's copy of `overlay_instances`, `gen_figure`, `colorize`,
-`viz_train_panel` and their helper from hover_net_tpu/utils/viz.py (same
-names, same behaviour); parity with misc/viz_utils.py:28-173 and the
-jet-colormap panels of run_desc.py:201-256 of the reference.
+The port's copy of `overlay_instances`, `overlay_instances_map`,
+`gen_figure`, `colorize`, `viz_train_panel` and their helper from
+hover_net_tpu/utils/viz.py (same names, same behaviour); parity with
+misc/viz_utils.py:28-173 and the jet-colormap panels of
+run_desc.py:201-256 of the reference.
 
 `colorize` takes matplotlib's 256-entry jet table from `JET_LUT`, built
 here from matplotlib's own segment data by its interpolation rule, so
@@ -47,6 +48,45 @@ def overlay_instances(image, inst_info, draw_dot=False, type_colour=None,
         if draw_dot:
             cx, cy = (int(v) for v in info["centroid"])
             overlay = cv2.circle(overlay, (cx, cy), 3, (255, 0, 0), -1)
+    return overlay
+
+
+def overlay_instances_map(image, inst_map, type_map=None, type_colour=None,
+                          line_thickness=2):
+    """Draw instance contours directly from a labelled instance map
+    (no info dict needed) — `visualize_instances_map` parity
+    (misc/viz_utils.py:42-90): per-instance bbox crop with a 2-px
+    margin, cv2 contour extraction, colour by the type map's dominant
+    non-zero id (type_colour: {type_id: (r, g, b)}) or a random palette.
+    """
+    overlay = np.copy(np.asarray(image).astype(np.uint8))
+    inst_map = np.asarray(inst_map)
+    inst_ids = [int(v) for v in np.unique(inst_map) if v != 0]
+    rng_colors = (np.array(random_colors(len(inst_ids))) * 255).astype(np.uint8)
+
+    for idx, inst_id in enumerate(inst_ids):
+        mask = (inst_map == inst_id).astype(np.uint8)
+        ys, xs = np.nonzero(mask)
+        y1, y2 = ys.min(), ys.max()
+        x1, x2 = xs.min(), xs.max()
+        y1 = max(y1 - 2, 0)
+        x1 = max(x1 - 2, 0)
+        y2 = min(y2 + 2, inst_map.shape[0] - 1)
+        x2 = min(x2 + 2, inst_map.shape[1] - 1)
+        crop = mask[y1:y2, x1:x2]
+        contours = cv2.findContours(
+            crop, cv2.RETR_TREE, cv2.CHAIN_APPROX_SIMPLE
+        )[0]
+        if not contours:
+            continue
+        contour = np.squeeze(contours[0].astype(np.int32)).reshape(-1, 2)
+        contour = contour + np.asarray([[x1, y1]])
+        if type_map is not None and type_colour is not None:
+            type_id = int(np.max(type_map[y1:y2, x1:x2]))
+            colour = tuple(int(c) for c in type_colour[type_id])
+        else:
+            colour = tuple(int(c) for c in rng_colors[idx])
+        cv2.drawContours(overlay, [contour], -1, colour, line_thickness)
     return overlay
 
 

@@ -7,9 +7,11 @@ Flax variables (BN statistics and affines randomised) and the same
 inputs, made with numpy.
 
 Bounds:
-- `pack_block`: weights identical (both cast the same f32 values to
-  bf16); the folded BN scale/offset within 1e-6 (f32 `1/sqrt` of two
-  libraries, measured <= 1.2e-7).
+- `pack_block`, from a float32-body model and from the bf16-body model
+  K3 runs on (whose BatchNorms hold the float32 values, as flax keeps
+  them): weights identical (both cast the same f32 values to bf16); the
+  folded BN scale/offset within 1e-6 (f32 `1/sqrt` of two libraries,
+  measured <= 1.2e-7).
 - one block call: the plain version and the interpret-mode kernel round
   at the same points (bf16 after each f32-accumulated product, after the
   BN multiply, after the BN add and after the residual add), so they can
@@ -17,12 +19,14 @@ Bounds:
   the bf16 rounding then lands on the other side. The bound is half a
   bf16 ulp at the output scale (2^-9 of it), far below the 3% of
   tests/test_encoder_pallas.py; measured: identical on both shapes.
-- the whole forward: the encoder blocks agree as above, but the stem,
-  d3 and the decoders are each package's own bf16 modules, which round
-  differently (the port's bf16 model also holds its BN statistics in
-  bf16). With bf16-representable variables the heads agree within 5% of
-  their scale (measured 3.1% np, 2.5% hv); the JAX package's own
-  standard-vs-fused drift on the same input is 6.2% / 8.5%.
+- the whole forward, from the float32 variables as a user loads them:
+  the encoder blocks agree as above, and the stem, d3 and the decoders
+  are each package's bf16 modules, which agree to a bf16 ulp on all but
+  a small share of each stage's elements (tests/test_torch_infer_bf16.py)
+  that the random net then amplifies. The heads agree within 4% of their
+  scale (measured 2.6% np, 3.1% hv; with the port's BN rounded to bf16,
+  as before it kept them in float32, 6.0% / 13.2%); the JAX package's
+  own standard-vs-fused drift on the same input is 6.2% / 8.5%.
 """
 
 from types import SimpleNamespace
@@ -31,7 +35,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 from hover_net_tpu.models.encoder_pallas import fused_block_apply as jax_apply
@@ -68,21 +71,34 @@ CALLS = [("d0", "d0", dict(count=3)),
 @pytest.fixture(scope="module")
 def carried():
     """JAX variables (randomised BN) and the port model that carries them
-    (float32 body, so the folded BN starts from the same f32 values)."""
+    (float32 body)."""
     _, variables = jax_variables("fast", None, seed=4)
     return variables, port_model("fast", None, variables)
 
 
+@pytest.fixture(scope="module")
+def carried_bf16(carried):
+    """The same variables in a bf16-body model, the one K3 runs on: its
+    BatchNorms hold the float32 values, so the fold starts from them."""
+    variables, _ = carried
+    cfg = HoVerNetConfig(mode="fast", nr_types=None, width=8, dtype=BF16)
+    net = HoVerNet(cfg).eval()
+    net.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
+    return variables, net
+
+
+@pytest.mark.parametrize("body", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name,block,kw", CALLS, ids=[c[0] for c in CALLS])
-def test_pack_block_matches_jax(carried, name, block, kw):
-    variables, net = carried
+def test_pack_block_matches_jax(request, body, name, block, kw):
+    variables, net = request.getfixturevalue(
+        "carried" if body == "float32" else "carried_bf16")
     want = jax_pack(variables["params"][block],
                     variables["batch_stats"][block], **kw)
     got = pack_block(getattr(net, block), **kw)
     assert set(got) == set(want)
     for key, w in want.items():
         w = np.asarray(w, np.float32)
-        g = got[key].float().numpy()
+        g = got[key].detach().float().numpy()
         assert g.shape == w.shape, key
         if got[key].dtype == BF16:
             np.testing.assert_array_equal(g, w, err_msg=key)
@@ -135,9 +151,6 @@ def test_fused_forward_matches_jax():
     from hover_net_tpu.models import HoVerNetConfig as JaxConfig
 
     _, variables = jax_variables("fast", None, seed=0)
-    variables = jax.tree_util.tree_map(
-        lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32),
-        variables)
     cfg = HoVerNetConfig(mode="fast", nr_types=None, width=8, dtype=BF16)
     net = HoVerNet(cfg).eval()
     net.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
@@ -155,7 +168,7 @@ def test_fused_forward_matches_jax():
         assert out.dtype == np.float32 and out.shape == ref.shape == (
             1, 164, 164, 2)
         rel = np.abs(out - ref).max() / np.abs(ref).max()
-        assert rel < 0.05, (name, rel)
+        assert rel < 0.04, (name, rel)
 
 
 def test_pack_encoder_repacks_after_load(carried):

@@ -108,6 +108,12 @@ CROP_CASES = {
     "cropping_center": lambda m, x: m.cropping_center(x[0], (11, 17)),
     "cropping_center_batch": lambda m, x: m.cropping_center(x, (9, 10),
                                                             batch=True),
+    "center_pad_to_shape": lambda m, x: m.center_pad_to_shape(
+        x[0], (40, 34), cval=7),
+    "center_pad_to_shape_2d": lambda m, x: m.center_pad_to_shape(
+        x[1, ..., 0], (33, 30)),
+    "get_bounding_box": lambda m, x: m.get_bounding_box(
+        (x[0, ..., 0] % 97 > 90) & (np.arange(27) > 3)[None]),
 }
 
 
@@ -310,6 +316,20 @@ def test_qupath_and_overlay(tmp_path):
     overlays.append(j_viz.overlay_instances(img, info, type_colour=types))
     assert_same(overlays[0], overlays[1])
     assert_same(overlays[2], overlays[3])
+    assert not np.array_equal(overlays[0], img)
+
+
+@pytest.mark.parametrize("typed", [False, True])
+def test_overlay_instances_map(typed):
+    inst = t_stats.remap_label(blobs(seed=12))
+    tp = (inst % 3).astype(np.int32) if typed else None
+    colours = {0: (1, 2, 3), 1: (200, 0, 9), 2: (7, 7, 7)} if typed else None
+    img = np.full(inst.shape + (3,), 200, np.uint8)
+    overlays = []
+    for mod in (t_viz, j_viz):
+        random.seed(13)
+        overlays.append(mod.overlay_instances_map(img, inst, tp, colours))
+    assert_same(overlays[0], overlays[1])
     assert not np.array_equal(overlays[0], img)
 
 

@@ -104,10 +104,12 @@ def test_reference_tar_loads_strict(tmp_path):
 
 
 def test_bf16_body_keeps_f32_heads():
+    """A bf16 body keeps its heads, and its BatchNorms, in float32."""
     cfg = HoVerNetConfig(mode="fast", nr_types=5, width=WIDTH,
                          dtype=torch.bfloat16)
     net = HoVerNet(cfg, generator=torch.Generator().manual_seed(0)).eval()
-    assert net.conv0.bn.weight.dtype == torch.bfloat16
+    assert net.conv0.bn.weight.dtype == torch.float32
+    assert net.conv0._modules["/"].weight.dtype == torch.bfloat16
     for branch in net.decoder.values():
         assert branch.u0.conv.weight.dtype == torch.float32
     with torch.no_grad():
@@ -115,3 +117,69 @@ def test_bf16_body_keeps_f32_heads():
     assert {k: v.dtype for k, v in out.items()} == dict.fromkeys(
         ("tp", "np", "hv"), torch.float32)
     assert out["np"].shape == (1, 2, 164, 164)
+
+
+def _bn_tensors(bn):
+    return (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+
+
+@pytest.mark.parametrize("body,bn", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.float64, torch.float64)])
+def test_construction_dtypes_and_state_round_trip(tmp_path, body, bn):
+    """Every BN's four tensors hold `bn` (float32 under a narrower body,
+    as flax's param_dtype), the convolutions the body's dtype, the heads
+    float32; the output of each stage has the body's dtype; a state dict
+    goes through save_train_tar and load_torch_tar unchanged, and a
+    float32 checkpoint loads into the BNs without rounding."""
+    from hover_net_tpu_torch.models.blocks import BatchNorm2d
+    from hover_net_tpu_torch.models.checkpoints import save_train_tar
+
+    cfg = HoVerNetConfig(mode="fast", nr_types=5, width=WIDTH, dtype=body)
+    net = HoVerNet(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    bns = [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+    # conv0, d0..d3 (units' preact/conv1/conv2 BNs and the closing BN),
+    # and per branch u3/u2's dense units and closing BN and u0's BN
+    units = 3 + 4 + 6 + 3
+    assert len(bns) == 1 + (3 * units - 4) + 4 + 3 * (2 * 8 + 2 * 4 + 2 + 1)
+    for m in bns:
+        assert {t.dtype for t in _bn_tensors(m)} == {bn}
+    heads = {b.u0.conv for b in net.decoder.values()}
+    for m in net.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            assert m.weight.dtype == (torch.float32 if m in heads else body)
+
+    _, variables = jax_variables("fast", 5)
+    state = state_dict_from_jax(variables, cfg)
+    net.load_state_dict(state, strict=True)
+    for key, m in (("conv0.bn", net.conv0.bn), ("d2.units.4.preact/bn",
+                   net.d2.units[4]._modules["preact/bn"])):
+        for name, t in zip(("weight", "bias", "running_mean", "running_var"),
+                           _bn_tensors(m)):
+            want = state[f"{key}.{name}"].to(bn)
+            assert torch.equal(t, want), (key, name)
+
+    seen = {}
+    hooks = [getattr(net, n).register_forward_hook(
+        lambda _m, _i, o, n=n: seen.__setitem__(n, o.dtype))
+        for n in ("conv0", "d0", "d1", "d2", "d3", "conv_bot")]
+    hooks.append(net.decoder["np"].u1.register_forward_hook(
+        lambda _m, _i, o: seen.__setitem__("u1", o.dtype)))
+    with torch.no_grad():
+        out = net(torch.zeros(1, 3, 256, 256, dtype=torch.uint8))
+    for h in hooks:
+        h.remove()
+    assert set(seen.values()) == {body}
+    assert {v.dtype for v in out.values()} == {torch.float32}
+
+    path = str(tmp_path / "m.tar")
+    save_train_tar(path, net, torch.optim.Adam(net.parameters()), 3)
+    loaded = load_torch_tar(path)
+    own = net.state_dict()
+    assert set(loaded) == set(own)
+    for k, v in own.items():
+        assert loaded[k].dtype == v.dtype and torch.equal(loaded[k], v), k
+    again = HoVerNet(cfg).eval()
+    again.load_state_dict(loaded, strict=True)
+    for k, v in again.state_dict().items():
+        assert v.dtype == own[k].dtype and torch.equal(v, own[k]), k
