@@ -185,11 +185,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per-tile device split; (d) WSIInferManager in original mode on a
    2048^2 pseudo-slide: K1 once per window batch, the json written, a
    second call skips the slide; prints the phase's seconds by part;
-17. prints the kernel table as one JSON line (K1's times at the WSI
+17. the JAX package's checkpoint format, read and written without flax
+   (models/msgpack_io.py): (a) prints which of jax, flax, optax and
+   msgpack are installed here and fails if one was imported; (b) phase
+   12's typed recipe `.tar` written as the JAX package's `.msgpack`, then
+   cli/run_infer tile on phase 12's held-out images from the `.tar` and
+   from the `.msgpack`: identical json and instance maps, K1 once per
+   image from the `.msgpack`; (c) phase 11's second-phase `.tar` written
+   as the JAX trainer's `net_epoch=1.msgpack` and `.opt` (weights, Adam
+   moments, step) in a phase directory of its own, and cli/run_train
+   --resume from it and from the `.tar` for two one-step epochs on four
+   of phase 11's patches, under deterministic algorithms: finite losses,
+   the step going on from the `.msgpack`'s, the port's `.tar` written
+   after each epoch, and the first resumed update from the `.msgpack`
+   within one float32 ulp of the one from the `.tar`;
+18. prints the kernel table as one JSON line (K1's times at the WSI
    window batch; each kernel's bound from its inputs and outputs at the
    timed shape; the launches of K1 and K3 are phase 7's, phase 13's,
-   phase 15's and, for K1, phase 16's), the card line, and last
-   {"ok": true, "device": {...}}.
+   phase 15's and, for K1, phase 16's and phase 17's), the card line, and
+   last {"ok": true, "device": {...}}.
 
 Outputs go to build/chip_smoke/ in the checkout. On its way out, whether
 it passed or failed, the script stops every process it started (the
@@ -2513,6 +2527,218 @@ def check_original_mode(work, card, device="cuda"):
     return launches, k1_res
 
 
+JAX_MODULES = ("jax", "flax", "optax", "msgpack")
+RESUME_PATCHES = {"train": 4, "valid": 2}  # phase 17 (c): one step an epoch
+RESUME_EPOCHS = 3   # resumed at epoch 1: epochs 2 and 3
+
+
+def log_jax_modules():
+    """Phase 17 (a): which of the JAX stack's modules this interpreter can
+    import and whether any was imported; fails if one was."""
+    import importlib.util
+
+    seen = {n: ("imported" if n in sys.modules else
+                "installed, not imported" if importlib.util.find_spec(n)
+                else "not installed") for n in JAX_MODULES}
+    log("JAX stack here: " + ", ".join(f"{n} {s}" for n, s in seen.items()))
+    if any(s == "imported" for s in seen.values()):
+        raise AssertionError(f"a module of the JAX stack was imported: {seen}")
+
+
+def msgpack_tile(work, tar, card, device):
+    """Phase 17 (b): phase 12's typed recipe `.tar` written as the JAX
+    package's `.msgpack` (the port's save_checkpoint over
+    jax_from_state_dict), then cli/run_infer tile on phase 12's held-out
+    images from the `.tar` and from the `.msgpack`: the same json and
+    instance maps, K1 once per image in the `.msgpack` run. Returns
+    (K1's launches in that run, its seconds)."""
+    import scipy.io as sio
+
+    from hover_net_tpu_torch.cli import run_infer
+    from hover_net_tpu_torch.models import checkpoints as ckpt
+    from hover_net_tpu_torch.models.hovernet import HoVerNetConfig
+    from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
+
+    root = os.path.join(work, "jax_ckpt")
+    cfg = HoVerNetConfig(mode="fast", nr_types=5, width=TRAIN_WIDTH)
+    msgpack = os.path.join(root, "net_epoch=400.msgpack")
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(msgpack, ckpt.jax_from_state_dict(
+        ckpt.load_torch_tar(tar), cfg), extra={"step": 400})
+    log(f"(b) {os.path.relpath(msgpack, ROOT)}: "
+        f"{os.path.getsize(msgpack) / 2**20:.1f} MiB written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    img_dir = os.path.join(work, "eval", "consep", "Images")
+    out, secs = {}, {}
+    for name, path in (("tar", tar), ("msgpack", msgpack)):
+        out[name] = os.path.join(root, f"out_{name}")
+        argv = ["--model_path", path, "--model_mode", "fast", "--width",
+                str(TRAIN_WIDTH), "--nr_types", "5", "--type_info_path",
+                os.path.join(ROOT, "type_info.json"), "--device", device,
+                "tile", "--input_dir", img_dir, "--output_dir", out[name],
+                "--save_format", "all"]
+        proc_tail.launches = 0
+        t0 = time.perf_counter()
+        run_infer.main(argv)
+        secs[name] = time.perf_counter() - t0
+        launches = proc_tail.launches
+        log(f"(b) run_infer tile --model_path {os.path.basename(path)}: "
+            f"{EVAL_IMAGES} images in {secs[name]:.3f} s, K1 launches "
+            f"{launches}")
+    if launches != EVAL_IMAGES:
+        raise AssertionError(f"K1 ran {launches} times on {EVAL_IMAGES} "
+                             "images from the .msgpack")
+    n_nuc = 0
+    for i in range(EVAL_IMAGES):
+        nuc = {}
+        for name in out:
+            with open(os.path.join(out[name], "json", f"img{i}.json")) as f:
+                nuc[name] = json.load(f)["nuc"]
+        inst = [sio.loadmat(os.path.join(out[name], "mat", f"img{i}.mat"))[
+            "inst_map"] for name in out]
+        if nuc["msgpack"] != nuc["tar"] or not np.array_equal(*inst):
+            raise AssertionError(f"img{i}: the .msgpack's instances differ "
+                                 "from the .tar's")
+        n_nuc += len(nuc["tar"])
+    log(f"(b) .msgpack == .tar: {n_nuc} nuclei over {EVAL_IMAGES} images, "
+        f"json and inst_map identical ({card})")
+    return launches, secs["msgpack"]
+
+
+def resume_from(root, phase_dir, patches, device):
+    """cli/run_train --resume on a one-phase config (phase 11's second
+    phase: all parameters, batch 4, RESUME_EPOCHS epochs of one step)
+    whose log dir is `phase_dir`, under deterministic algorithms. Returns
+    (the RunInfo, its seconds)."""
+    from hover_net_tpu_torch.cli import bench, run_train
+
+    cfg_path = os.path.join(root, os.path.basename(phase_dir) + ".py")
+    with open(cfg_path, "w") as f:
+        f.write(
+            "from hover_net_tpu_torch.config import PhaseConfig, TrainConfig\n"
+            f"config = TrainConfig(model_mode='fast', nr_types=5, "
+            f"width={TRAIN_WIDTH}, log_dir={phase_dir!r}, debug=True, "
+            f"train_dir_list=[{patches['train']!r}], "
+            f"valid_dir_list=[{patches['valid']!r}], phases=[PhaseConfig("
+            f"batch_size={{'train': 4, 'valid': 2}}, "
+            f"nr_epochs={RESUME_EPOCHS})])\n")
+    t0 = time.perf_counter()
+    with bench.deterministic_training():
+        infos = run_train.main(["--config", cfg_path, "--device", device,
+                                "--resume"])
+    return infos[0], time.perf_counter() - t0
+
+
+def msgpack_resume(work, train_tar, card, device):
+    """Phase 17 (c): a phase directory holding only `net_epoch=1.msgpack`
+    and its `.opt` (the JAX trainer's files), made from phase 11's second
+    phase's `.tar` (weights, Adam state, step), and one holding that
+    `.tar`; cli/run_train --resume on each for two steps (two epochs of
+    one batch) under deterministic algorithms. Every loss finite, the
+    step going on from the msgpack's extra["step"], the port's
+    `net_epoch=2.tar` and `net_epoch=3.tar` written, and the first resumed
+    update (epoch 2's parameters less epoch 1's) of the `.msgpack` resume
+    equal to the `.tar` resume's within float32 rounding (one ulp of the
+    tensor's largest parameter). Returns the seconds of the `.msgpack`
+    resume."""
+    import torch
+
+    from hover_net_tpu_torch.models import checkpoints as ckpt
+    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+
+    root = os.path.join(work, "jax_ckpt", "resume")
+    patches = {}
+    for split, n in RESUME_PATCHES.items():
+        src = os.path.join(work, "train", "patches", split)
+        patches[split] = os.path.join(root, "patches", split)
+        os.makedirs(patches[split])
+        for name in sorted(os.listdir(src))[:n]:
+            shutil.copy(os.path.join(src, name), patches[split])
+
+    desc, opt_sd, step = ckpt.load_train_tar(train_tar)
+    net = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5,
+                                  width=TRAIN_WIDTH))
+    net.load_state_dict(desc, strict=True)
+    opt = torch.optim.Adam(net.parameters())
+    opt.load_state_dict(opt_sd)
+    dirs = {"msgpack": os.path.join(root, "jax_phase"),
+            "tar": os.path.join(root, "port_phase")}
+    t0 = time.perf_counter()
+    ckpt.save_train_msgpack(os.path.join(dirs["msgpack"],
+                                         "net_epoch=1.msgpack"),
+                            net, opt, step)
+    log(f"(c) phase 11's net_epoch=1.tar (step {step}) as the JAX trainer's "
+        f"net_epoch=1.msgpack + .opt in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{n} {os.path.getsize(os.path.join(dirs['msgpack'], n))
+                                 / 2**20:.1f} MiB"
+                    for n in sorted(os.listdir(dirs["msgpack"]))))
+    os.makedirs(dirs["tar"])
+    shutil.copy(train_tar, dirs["tar"])
+
+    infos, secs, after = {}, {}, {}
+    for name, d in dirs.items():
+        infos[name], secs[name] = resume_from(root, d, patches, device)
+        info = infos[name]
+        saved = [torch.load(os.path.join(d, f"net_epoch={e}.tar"),
+                            map_location="cpu", weights_only=True)
+                 for e in (2, 3)]
+        log(f"(c) run_train --resume from {name} in {secs[name]:.1f} s: "
+            f"losses {[round(v, 5) for v in info.losses]}, step {step} -> "
+            f"{info.train_state.step}, saved steps "
+            f"{[s['step'] for s in saved]}")
+        if (len(info.losses) != RESUME_EPOCHS - 1
+                or not np.all(np.isfinite(info.losses))
+                or info.train_state.step != step + RESUME_EPOCHS - 1
+                or [s["step"] for s in saved] != [step + 1, step + 2]):
+            raise AssertionError(f"the resume from the {name} went wrong")
+        after[name] = saved[0]["desc"]
+    _, _, msg_step = ckpt.load_train_msgpack(
+        os.path.join(dirs["msgpack"], "net_epoch=1.msgpack"), net)
+    if msg_step != step:
+        raise AssertionError(f"the .msgpack's step {msg_step}, not {step}")
+
+    worst, n_equal, names = 0.0, 0, [n for n, _ in net.named_parameters()]
+    for key in names:
+        start = desc[key].float()
+        upd = {k: v[key].float() - start for k, v in after.items()}
+        ulp = float(np.spacing(np.float32(max(
+            float(after["tar"][key].abs().max()), float(start.abs().max())))))
+        diff = float((upd["msgpack"] - upd["tar"]).abs().max())
+        worst = max(worst, diff / ulp)
+        n_equal += torch.equal(after["msgpack"][key], after["tar"][key])
+        if not upd["tar"].abs().max() > 0:
+            raise AssertionError(f"{key}: the resumed step left it as it was")
+    log(f"(c) first resumed update, .msgpack vs .tar: {n_equal} of "
+        f"{len(names)} parameters bit-identical, largest difference "
+        f"{worst:.3f} ulp of the tensor's largest parameter (bound 1) "
+        f"({card})")
+    if worst > 1.0:
+        raise AssertionError("the .msgpack resume's first update differs "
+                             "from the .tar resume's")
+    return secs["msgpack"]
+
+
+def check_jax_checkpoints(work, eval_tar, train_tar, card, device="cuda"):
+    """Phase 17: the JAX package's checkpoint format on the card, without
+    flax: (a) the JAX stack is not imported, (b) cli/run_infer tile on a
+    `.msgpack` of phase 12's recipe against its `.tar`, (c) run_train
+    --resume of a phase whose last checkpoint is a JAX `.msgpack` and
+    `.opt` against the same phase resumed from its `.tar`. Returns K1's
+    launches in (b)'s `.msgpack` run."""
+    import torch
+
+    t_start = time.perf_counter()
+    log_jax_modules()
+    launches, tile_s = msgpack_tile(work, eval_tar, card, device)
+    torch.cuda.empty_cache()
+    resume_s = msgpack_resume(work, train_tar, card, device)
+    torch.cuda.empty_cache()
+    log(f"phase 17 in {time.perf_counter() - t_start:.1f} s: tile from the "
+        f".msgpack {tile_s:.1f}, resume from the .msgpack {resume_s:.1f}; "
+        f"K1 launches {launches} ({card})")
+    return launches
+
+
 def main():
     import torch
 
@@ -2566,7 +2792,7 @@ def main():
     del canvas
     torch.cuda.empty_cache()
 
-    check_training(work)
+    train_tar = check_training(work)
     torch.cuda.empty_cache()
     from hover_net_tpu_torch.cli import bench
 
@@ -2585,6 +2811,7 @@ def main():
     k3_launches += k3_m
     k1_o, _ = check_original_mode(work, card)
     k1_launches += k1_o
+    k1_launches += check_jax_checkpoints(work, eval_tar, train_tar, card)
     log_bn_checked("all phases")
     if not all(BN_CHECKED.values()):
         raise AssertionError(f"a kind of model went unchecked: {BN_CHECKED}")

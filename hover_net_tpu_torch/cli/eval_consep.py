@@ -5,14 +5,15 @@ images (cli/run_infer), the ground-truth `.mat` files with CoNSeP's type
 merge (`prepare_truth`), then cli/compute_stats in instance mode (DICE,
 AJI, DQ, SQ, PQ, AJI+) and type mode (F1_d, accuracy, F1 of each type).
 
-  python -m hover_net_tpu_torch.cli.eval_consep <consep_root> <ckpt.tar> \
+  python -m hover_net_tpu_torch.cli.eval_consep <consep_root> <ckpt> \
       <out_dir> [mode] [width] [--device cuda]
 
 `consep_root` holds Test/Images/*.png and Test/Labels/*.mat (the CoNSeP
 download's layout); the checkpoint is a reference-format `.tar` such as
-the published hovernet_original_consep_type_tf2pytorch.tar, read
-directly; `mode` is `original` (the published checkpoint's, default) or
-`fast`; `width` 64 is the reference model. It runs on the card unless
+the published hovernet_original_consep_type_tf2pytorch.tar, or a
+`.msgpack` the JAX package's trainer wrote, each read directly; `mode`
+is `original` (the published checkpoint's, default) or `fast`; `width`
+64 is the reference model. It runs on the card unless
 `--device cpu` is given. Writes `out_dir/{json,mat,overlay}` and the
 merged truth under `out_dir/true`, and prints both metric lines.
 """
@@ -66,7 +67,8 @@ def build_parser():
     p = argparse.ArgumentParser("hover_net_tpu_torch.eval_consep")
     p.add_argument("consep_root",
                    help="directory holding Test/Images and Test/Labels")
-    p.add_argument("checkpoint", help="reference-format .tar checkpoint")
+    p.add_argument("checkpoint",
+                   help="reference-format .tar or JAX .msgpack checkpoint")
     p.add_argument("out_dir")
     p.add_argument("mode", nargs="?", default="original",
                    choices=["original", "fast"])
@@ -87,11 +89,6 @@ def main(argv=None):
     for d in (img_dir, lbl_dir):
         if not os.path.isdir(d):
             sys.exit(f"missing {d}")
-    if not args.checkpoint.endswith((".tar", ".pth", ".pt")):
-        raise ValueError(
-            f"{args.checkpoint}: the port reads reference .tar checkpoints; "
-            "convert a JAX .msgpack once with "
-            "hover_net_tpu.models.checkpoints.save_torch_tar")
     os.makedirs(args.out_dir, exist_ok=True)
 
     # CoNSeP's merged types: 4 classes + background

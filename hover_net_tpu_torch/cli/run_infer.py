@@ -2,8 +2,9 @@
 
 Counterpart of hover_net_tpu/cli/run_infer.py, with the same flags plus
 `--device` (default `cuda`; without a GPU that raises, it never falls
-back to the CPU). Checkpoints are reference PyTorch `.tar` files; convert
-a JAX `.msgpack` with hover_net_tpu.models.checkpoints.save_torch_tar.
+back to the CPU). `--model_path` takes a reference PyTorch `.tar`, the
+port trainer's `.tar`, or the JAX package's `.msgpack` as its trainer
+writes it (`net_epoch=N.msgpack`), read without flax.
 
   python -m hover_net_tpu_torch.cli.run_infer \
       --model_path ckpt.tar --model_mode fast --nr_types 6 \
@@ -40,7 +41,8 @@ def build_parser():
                    help="number of nuclei types (0 = segmentation only)")
     p.add_argument("--type_info_path", default=None)
     p.add_argument("--model_path", required=True,
-                   help="reference-format .tar checkpoint")
+                   help="checkpoint: a reference-format .tar or a "
+                        "JAX .msgpack")
     p.add_argument("--model_mode", default="fast",
                    choices=["original", "fast"])
     p.add_argument("--batch_size", type=int, default=32)

@@ -14,6 +14,13 @@ the JAX CLI takes every device; more than there are raises; with
 flags build the default two-phase CoNSeP setup
 (models/hovernet/opt.py:23-142 equivalent). `--view` writes PNGs and
 needs no matplotlib.
+
+`--resume` continues the first phase whose log dir holds fewer epochs
+than it runs, from its last `net_epoch=N` checkpoint: the port's `.tar`,
+or the JAX trainer's `.msgpack` with its optax state `<path>.opt` (a
+phase begun on the TPU; the parameters, BN statistics, Adam moments and
+step carry over, and the phase goes on writing `.tar`). A phase's
+`pretrained` may be a JAX `.msgpack` as well.
 """
 
 from __future__ import annotations
@@ -85,7 +92,8 @@ def main(argv=None):
                    help="torch device to train on ('cuda' or 'cpu')")
     p.add_argument("--pretrained", default=None,
                    help="phase-0 ImageNet preact-ResNet50 weights "
-                        "(.npz TF- or torch-keyed, or .tar); "
+                        "(.npz TF- or torch-keyed, .tar or JAX "
+                        ".msgpack); "
                         "overrides the config's value "
                         "(reference run_train.py:196-203, opt.py:55)")
     args = p.parse_args(argv)

@@ -1,9 +1,11 @@
 """Shared inference manager: devices, model and checkpoint, type info, json.
 
-Counterpart of hover_net_tpu/infer/base.py. Checkpoints are reference
-PyTorch `.tar` files ({'desc': state_dict}), which load into the port's
-module tree with strict=True; a JAX `.msgpack` checkpoint is converted
-once with hover_net_tpu.models.checkpoints.save_torch_tar.
+Counterpart of hover_net_tpu/infer/base.py. A checkpoint is a reference
+PyTorch `.tar` ({'desc': state_dict}) or the port trainer's `.tar`, or a
+`.msgpack` of the JAX package (its trainer's `net_epoch=N.msgpack`),
+read without flax and checked against the model as the JAX managers
+check it (models/checkpoints.load_model_state); either loads into the
+port's module tree with strict=True.
 
 A manager runs on an ordered list of devices (`devices`): the first
 holds the loaded model, and `model_on(device)` gives a replica on any
@@ -21,7 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.checkpoints import load_torch_tar
+from ..models.checkpoints import load_model_state
 from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..ops.instance_table import emit_nuc_json
 from ..parallel.mesh import canonical_device
@@ -106,7 +108,8 @@ class InferManagerBase:
         self.cfg = HoVerNetConfig(mode=mode, nr_types=nr_types, width=width,
                                   dtype=dtype)
         self.model = HoVerNet(self.cfg)
-        self.model.load_state_dict(load_torch_tar(model_path), strict=True)
+        self.model.load_state_dict(load_model_state(model_path, self.cfg),
+                                   strict=True)
         self.model.to(self.device).eval()
         self._replicas: Dict[torch.device, HoVerNet] = {}
         self.nr_types = nr_types

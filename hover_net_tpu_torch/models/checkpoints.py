@@ -4,9 +4,16 @@ Counterpart of hover_net_tpu/models/checkpoints.py. The port's module
 tree uses the reference PyTorch state dict names, so a reference `.tar`
 ({'desc': state_dict}) loads with strict=True, and the trainer writes the
 reference's own format (`save_train_tar`: {'desc', 'optimizer', 'step'}),
-which the JAX package's `load_torch_tar` reads as well. The JAX package's
-`.msgpack` format needs flax: convert such a checkpoint once with
-hover_net_tpu.models.checkpoints.save_torch_tar.
+which the JAX package's `load_torch_tar` reads as well.
+
+The JAX package's own format is read and written here too, without flax
+(models/msgpack_io.py): `save_checkpoint` / `load_checkpoint` are the
+JAX module's functions of those names, and `load_model_state` takes
+either format for inference. The JAX trainer writes `net_epoch=N.msgpack`
+({params, batch_stats} and {"step": n}) with its optax Adam state beside
+it as `<path>.opt`; `load_train_msgpack` reads such a pair for `--resume`
+(`adam_state_from_optax` maps the Adam moments onto torch.optim.Adam's
+state) and `save_train_msgpack` writes one.
 
 `state_dict_from_jax` carries a JAX {params, batch_stats} tree (nested
 numpy dicts) into the port's state dict, `jax_from_state_dict` back.
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 from .hovernet import HoVerNetConfig
+from .msgpack_io import msgpack_restore, msgpack_serialize
 
 RES_COUNTS = {"d0": 3, "d1": 4, "d2": 6, "d3": 3}
 DENSE_COUNTS = {"u3": 8, "u2": 4}
@@ -84,20 +92,38 @@ def name_map(cfg: HoVerNetConfig) -> List[Row]:
     return rows
 
 
-def state_dict_from_jax(variables, cfg: HoVerNetConfig
+def _float32(v) -> np.ndarray:
+    """A leaf of a JAX tree as a float32 numpy array (a bfloat16 leaf of
+    msgpack_io is a torch tensor)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().float().numpy()
+    return np.asarray(v, np.float32)
+
+
+def _leaf(tree, path: Tuple[str, ...]):
+    """The leaf of `tree` at `path`, or None where the path is absent."""
+    node = tree
+    for part in path:
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def state_dict_from_jax(variables, cfg: HoVerNetConfig, partial: bool = False
                         ) -> Dict[str, torch.Tensor]:
     """JAX {params, batch_stats} (nested dicts of numpy arrays) -> the
     port's state dict: HWIO kernels -> OIHW, scale -> weight, mean ->
-    running_mean, var -> running_var."""
+    running_mean, var -> running_var. A variable of the model that
+    `variables` lacks raises KeyError, or with `partial` is left out."""
     out = {}
     for key, path, transform in name_map(cfg):
-        node = variables
-        for part in path:
-            if part not in node:
-                raise KeyError(f"JAX variables miss {'/'.join(path)} "
-                               f"(-> {key})")
-            node = node[part]
-        v = np.asarray(node, np.float32)
+        node = _leaf(variables, path)
+        if node is None:
+            if partial:
+                continue
+            raise KeyError(f"JAX variables miss {'/'.join(path)} (-> {key})")
+        v = _float32(node)
         if transform == "OIHW":
             v = v.transpose(3, 2, 0, 1)
         out[key] = torch.tensor(v)
@@ -138,6 +164,219 @@ def jax_from_state_dict(state: Dict[str, torch.Tensor], cfg: HoVerNetConfig):
     return out
 
 
+# ------------------------------------------------------ JAX .msgpack
+
+def _atomic_write(path: str, write) -> None:
+    """`write(tmp)` into a temp file beside `path`, then rename it."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    os.close(fd)
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _state_dict(tree):
+    """The JAX module's `to_state_dict(tree_map(np.asarray, tree))` for
+    the port's trees, nested dicts: str keys, every leaf a numpy array (a
+    torch tensor on the host; bfloat16 stays a tensor, which msgpack_io
+    writes as a bfloat16 array)."""
+    if isinstance(tree, dict):
+        return {str(k): _state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return t if t.dtype == torch.bfloat16 else t.numpy()
+    return np.asarray(tree)
+
+
+def save_checkpoint(path: str, variables, extra: Optional[dict] = None):
+    """The JAX package's `save_checkpoint`: an atomic write of
+    {"variables": variables, "extra": extra} in flax's msgpack format,
+    the same bytes for the same values."""
+    data = msgpack_serialize({"variables": _state_dict(variables),
+                              "extra": extra or {}})
+
+    def write(tmp):
+        with open(tmp, "wb") as f:
+            f.write(data)
+
+    _atomic_write(path, write)
+
+
+def load_checkpoint(path: str):
+    """(variables, extra) of a checkpoint of the JAX package's format, as
+    its `load_checkpoint(path)` gives them: nested dicts of numpy arrays
+    (msgpack_io.msgpack_restore)."""
+    with open(path, "rb") as f:
+        payload = msgpack_restore(f.read())
+    return payload["variables"], payload.get("extra", {})
+
+
+def variable_paths(tree, prefix: Tuple[str, ...] = ()):
+    """The path of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from variable_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+def check_variables(variables, cfg: HoVerNetConfig, path: str) -> None:
+    """The JAX managers' `_validate_variables`: a checkpoint must hold
+    exactly the variables of `cfg`'s model (a typed checkpoint read
+    without nr_types, or the reverse, raises ValueError)."""
+    want = {p for _, p, _ in name_map(cfg)}
+    have = set(variable_paths(variables))
+    missing, extra = want - have, have - want
+    if missing:
+        raise ValueError(
+            f"checkpoint {path} missing {len(missing)} variables for "
+            f"mode={cfg.mode} nr_types={cfg.nr_types} width={cfg.width}, "
+            f"e.g. {['/'.join(k) for k in sorted(missing)[:3]]}")
+    if extra:
+        raise ValueError(
+            f"checkpoint {path} has {len(extra)} unexpected variables "
+            f"(wrong --nr_types/--model_mode/--width?), e.g. "
+            f"{['/'.join(k) for k in sorted(extra)[:3]]}")
+
+
+def load_model_state(path: str, cfg: HoVerNetConfig
+                     ) -> Dict[str, torch.Tensor]:
+    """The state dict of a model checkpoint for `cfg`'s model, as the JAX
+    managers pick the loader: a reference or trainer `.tar` (`.pth`,
+    `.pt`), else the JAX package's msgpack (checked by
+    `check_variables`)."""
+    if str(path).endswith((".tar", ".pth", ".pt")):
+        return load_torch_tar(path)
+    variables, _ = load_checkpoint(path)
+    check_variables(variables, cfg, path)
+    return state_dict_from_jax(variables, cfg)
+
+
+def _param_rows(cfg: HoVerNetConfig):
+    """{torch parameter name: (path under params, transform)}: the rows
+    of `name_map` that optax's Adam moments mirror (no batch_stats)."""
+    return {key: (path[1:], transform) for key, path, transform
+            in name_map(cfg) if path[0] == "params"}
+
+
+def _count(v) -> int:
+    return int(np.asarray(v))
+
+
+def adam_state_from_optax(opt_tree, cfg: HoVerNetConfig,
+                          model: torch.nn.Module) -> dict:
+    """The JAX trainer's optax state (the `.opt` file's variables:
+    "0" = scale_by_adam's {count, mu, nu}, "1" = the schedule's {count})
+    as a `torch.optim.Adam` state dict for `model`: each parameter's
+    exp_avg / exp_avg_sq from mu / nu (HWIO kernels to OIHW), its step
+    from the count. Both compute optax's scale_by_adam(0.9, 0.999, 1e-8)
+    with its bias corrections, so the next update is the same.
+
+    Torch keys the state by parameter index, in `model.parameters()`
+    order. Every parameter gets a state: in a frozen-encoder phase the
+    JAX tree holds zero moments for the encoder (its gradients are
+    zero), which the torch step then never reads, since the port's frozen
+    parameters get no gradient. The param groups are torch's Adam with
+    the trainer's betas and eps; the trainer sets each update's lr from
+    its schedule."""
+    adam = opt_tree["0"]
+    count = _count(adam["count"])
+    if "1" in opt_tree and _count(opt_tree["1"]["count"]) != count:
+        raise ValueError(f"optax state: Adam count {count}, schedule count "
+                         f"{_count(opt_tree['1']['count'])}")
+    rows = _param_rows(cfg)
+    state = {}
+    for i, (name, p) in enumerate(model.named_parameters()):
+        path, transform = rows[name]
+        moments = {}
+        for key, part in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+            v = _leaf(adam[part], path)
+            if v is None:
+                raise KeyError(f"optax state misses {part}/{'/'.join(path)}"
+                               f" (-> {name})")
+            v = torch.from_numpy(_float32(v))
+            if transform == "OIHW":
+                v = v.permute(3, 2, 0, 1).contiguous()
+            if tuple(v.shape) != tuple(p.shape):
+                raise ValueError(f"optax {part} of {name}: shape "
+                                 f"{tuple(v.shape)}, parameter "
+                                 f"{tuple(p.shape)}")
+            moments[key] = v
+        state[i] = {"step": torch.tensor(float(count)), **moments}
+    groups = torch.optim.Adam(model.parameters(), betas=(0.9, 0.999),
+                              eps=1e-8).state_dict()["param_groups"]
+    return {"state": state, "param_groups": groups}
+
+
+def optax_from_adam_state(opt_state: dict, cfg: HoVerNetConfig,
+                          model: torch.nn.Module, step: int) -> dict:
+    """Inverse of `adam_state_from_optax`: a `torch.optim.Adam` state dict
+    of `model` after `step` updates -> the JAX trainer's optax state
+    ({"0": {count, mu, nu}, "1": {count}}, float32 moments, int32
+    counts). A parameter without torch state (a frozen one) gets zero
+    moments, as optax's would be; one whose moments are not zero must
+    have taken all `step` updates, else ValueError."""
+    rows = _param_rows(cfg)
+    mu: dict = {}
+    nu: dict = {}
+    for i, (name, p) in enumerate(model.named_parameters()):
+        path, transform = rows[name]
+        s = opt_state["state"].get(i) or {}
+        moments = []
+        for key in ("exp_avg", "exp_avg_sq"):
+            v = (s[key].detach().cpu().float() if key in s
+                 else torch.zeros(p.shape))
+            if transform == "OIHW":
+                v = v.permute(2, 3, 1, 0)
+            moments.append(np.ascontiguousarray(v.numpy()))
+        if s and int(s["step"]) != step and any(m.any() for m in moments):
+            raise ValueError(f"{name}: Adam state after {int(s['step'])} "
+                             f"updates, not {step}")
+        for tree, v in zip((mu, nu), moments):
+            node = tree
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = v
+    count = np.asarray(step, np.int32)
+    return {"0": {"count": count, "mu": mu, "nu": nu},
+            "1": {"count": count.copy()}}
+
+
+def load_train_msgpack(path: str, model: torch.nn.Module):
+    """(state dict, optimizer state dict, step) of a checkpoint the JAX
+    trainer wrote (`net_epoch=N.msgpack` and its `<path>.opt`), for
+    `model` (a HoVerNet: its cfg and parameter order). The step is
+    `extra["step"]`, which the JAX trainer writes equal to the optax
+    counts; a file where they differ raises ValueError."""
+    variables, extra = load_checkpoint(path)
+    check_variables(variables, model.cfg, path)
+    opt_tree, _ = load_checkpoint(path + ".opt")
+    opt_state = adam_state_from_optax(opt_tree, model.cfg, model)
+    step = int(extra.get("step", 0))
+    count = _count(opt_tree["0"]["count"])
+    if step != count:
+        raise ValueError(f"{path}: step {step}, but {path}.opt counts "
+                         f"{count} updates")
+    return state_dict_from_jax(variables, model.cfg), opt_state, step
+
+
+def save_train_msgpack(path: str, model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer, step: int):
+    """Write `model`'s variables, {"step": step} and its Adam state as the
+    JAX trainer does (`RunInfo.save_checkpoint`): `path` and
+    `<path>.opt`."""
+    cfg = model.cfg
+    save_checkpoint(path, jax_from_state_dict(model.state_dict(), cfg),
+                    extra={"step": int(step)})
+    save_checkpoint(path + ".opt", optax_from_adam_state(
+        optimizer.state_dict(), cfg, model, step))
+
+
 # ------------------------------------------------------------ trainer .tar
 
 def save_train_tar(path: str, model: torch.nn.Module,
@@ -148,16 +387,7 @@ def save_train_tar(path: str, model: torch.nn.Module,
     payload = {"desc": {k: v.detach().cpu()
                         for k, v in model.state_dict().items()},
                "optimizer": optimizer.state_dict(), "step": int(step)}
-    d = os.path.dirname(os.path.abspath(path))
-    os.makedirs(d, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
-    os.close(fd)
-    try:
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    _atomic_write(path, lambda tmp: torch.save(payload, tmp))
 
 
 def load_train_tar(path: str):

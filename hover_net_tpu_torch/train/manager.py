@@ -3,12 +3,15 @@ several.
 
 Counterpart of hover_net_tpu/train/manager.py. Per phase
 (TrainConfig.phases): build the model and optimizer, load pretrained
-weights (a trainer or reference `.tar`, an ImageNet `.npz`, or chain
-from the previous phase's last epoch), wire the train/valid engines and
-callbacks, run the epoch loop with the PyTorch train step. Checkpoints
-are the reference's `.tar` ({'desc', 'optimizer', 'step'}), and
-`--resume` continues a phase from its last saved epoch (the reference
-left resume as a TODO, run_train.py:176).
+weights (a trainer or reference `.tar`, a JAX `.msgpack`, an ImageNet
+`.npz`, or chain from the previous phase's last epoch), wire the
+train/valid engines and callbacks, run the epoch loop with the PyTorch
+train step. Checkpoints are the reference's `.tar` ({'desc',
+'optimizer', 'step'}), and `--resume` continues a phase from its last
+saved epoch (the reference left resume as a TODO, run_train.py:176).
+A phase the JAX trainer began resumes too: its last checkpoint is then
+its `net_epoch=N.msgpack`, with the optax Adam state in `<path>.opt`,
+and the phase goes on writing the port's `.tar`.
 
 The trainer runs on `device` ('cuda' by default; 'cpu' only when asked —
 a missing GPU raises, there is no fallback). As the JAX trainer takes
@@ -195,10 +198,17 @@ class TrainManager:
             # must cover the whole encoder or load_pretrained_npz raises
             incoming = ckpt.load_pretrained_npz(path, model.cfg)
         else:
-            raise ValueError(
-                f"{path}: the port loads .tar and .npz weights; convert a "
-                "JAX .msgpack once with "
-                "hover_net_tpu.models.checkpoints.save_torch_tar")
+            # the JAX package's msgpack, its matching variables (the JAX
+            # trainer's partial merge)
+            variables, _ = ckpt.load_checkpoint(path)
+            incoming = ckpt.state_dict_from_jax(variables, model.cfg,
+                                                partial=True)
+            known = {p for _, p, _ in ckpt.name_map(model.cfg)}
+            unknown = [p for p in ckpt.variable_paths(variables)
+                       if p not in known]
+            if unknown:
+                print("unknown variables:", unknown[:8],
+                      "..." if len(unknown) > 8 else "")
         merge_partial(model, incoming)
 
     def _get_loader(self, mode, phase):
@@ -255,7 +265,10 @@ class TrainManager:
         if resume and os.path.isdir(save_dir):
             last = last_checkpoint(save_dir, allow_missing=True)
             if last:
-                desc, opt_state, step = ckpt.load_train_tar(last)
+                desc, opt_state, step = (
+                    ckpt.load_train_msgpack(last, model)
+                    if last.endswith(".msgpack")
+                    else ckpt.load_train_tar(last))
                 model.load_state_dict(desc, strict=True)
                 if opt_state is not None:
                     state.optimizer.load_state_dict(opt_state)
@@ -412,13 +425,16 @@ def _epoch_of(path) -> int:
 def last_checkpoint(log_dir, allow_missing=False):
     """Highest-epoch checkpoint recorded in a phase dir (the reference
     reads stats.json for this, run_train.py:164-174; the glob makes
-    resume work even if stats.json is missing)."""
-    paths = glob.glob(f"{log_dir}/net_epoch=*.tar")
+    resume work even if stats.json is missing): the port's
+    `net_epoch=N.tar` or the JAX trainer's `net_epoch=N.msgpack`, the
+    `.tar` where both hold the highest epoch."""
+    paths = (glob.glob(f"{log_dir}/net_epoch=*.tar")
+             + glob.glob(f"{log_dir}/net_epoch=*.msgpack"))
     if not paths:
         if allow_missing:
             return None
         raise FileNotFoundError(f"no checkpoints under {log_dir}")
-    return max(paths, key=_epoch_of)
+    return max(paths, key=lambda p: (_epoch_of(p), p.endswith(".tar")))
 
 
 def merge_partial(model: torch.nn.Module, incoming: Dict[str, torch.Tensor]

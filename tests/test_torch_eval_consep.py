@@ -12,7 +12,8 @@ JAX package's scripts, on the CPU.
   script's heredoc and compute_stats print (both tile managers in float32,
   as tests/test_torch_tile.py runs the CLIs);
 - cli/eval_consep_dryrun runs end to end with `--device cpu` in both
-  modes; a `.msgpack` checkpoint and a missing Test/Images raise;
+  modes; a malformed `.msgpack` checkpoint and a missing Test/Images
+  raise;
 - cli/bench_finalize_pool paints the JAX script's windows, counts the same
   instances and prints the same JSON keys.
 """
@@ -177,9 +178,13 @@ def test_dryrun_runs_end_to_end_on_the_cpu(mode, tmp_path, capsys):
 
 def test_eval_consep_refuses_a_msgpack_and_a_missing_layout(tmp_path,
                                                             standins):
-    with pytest.raises(ValueError, match="msgpack"):
-        eval_consep.main([standins, str(tmp_path / "m.msgpack"),
-                          str(tmp_path / "out"), "--device", "cpu"])
+    # the port reads a JAX .msgpack (tests/test_torch_msgpack.py); one
+    # cut short raises
+    bad = tmp_path / "m.msgpack"
+    bad.write_bytes(b"\x82\xa5extra\x80\xa9variables\x81")
+    with pytest.raises(ValueError, match="msgpack: truncated"):
+        eval_consep.main([standins, str(bad), str(tmp_path / "out"),
+                          "--device", "cpu"])
     with pytest.raises(SystemExit, match="missing"):
         eval_consep.main([str(tmp_path), str(tmp_path / "m.tar"),
                           str(tmp_path / "out"), "--device", "cpu"])

@@ -1,7 +1,9 @@
 """The port stands alone: nothing in hover_net_tpu_torch/ or chip_smoke.py
-imports jax, flax, the JAX package hover_net_tpu, or the JAX package's
-measurement scripts (bench.py and scripts/ at the repository root),
-directly or through another module."""
+imports jax, flax, optax, msgpack (a GPU host need not have them; the
+port reads the JAX checkpoints with its own models/msgpack_io.py),
+the JAX package hover_net_tpu, or the JAX package's measurement scripts
+(bench.py and scripts/ at the repository root), directly or through
+another module."""
 
 import ast
 import os
@@ -11,7 +13,8 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "hover_net_tpu", "bench", "scripts")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "hover_net_tpu", "bench",
+             "scripts")
 # the port's counterparts of bench.py and scripts/, under cli/
 MEASUREMENT_CLIS = ("bench", "bench_wsi", "bench_train", "probe_device_time",
                     "fused_encoder_drift", "parity_drift_sweep",
@@ -51,11 +54,14 @@ def test_forbidden_imports_are_found(tmp_path):
     src = ("import os\nimport jax.numpy as jnp\n"
            "from hover_net_tpu.ops import cc_np\n"
            "import hover_net_tpu_torch\nfrom . import filters\n"
-           "def f():\n    import flax\n")
+           "def f():\n    import flax\n"
+           "import optax\nfrom msgpack import packb\n"
+           "from hover_net_tpu_torch.models import msgpack_io\n"
+           "from .msgpack_io import msgpack_restore\n")
     path = tmp_path / "probe.py"
     path.write_text(src)
     assert [n for _, n in forbidden_imports(str(path))] == [
-        "jax.numpy", "hover_net_tpu.ops", "flax"]
+        "jax.numpy", "hover_net_tpu.ops", "optax", "msgpack", "flax"]
 
 
 def test_jax_bench_and_scripts_imports_are_found(tmp_path):

@@ -112,12 +112,10 @@ def test_post_proc_and_tables_match_jax(typed):
                                       np.asarray(tab_j[key]), err_msg=key)
 
 
-def forced_foreground_tar(path, nr_types=5, seed=2, mode="fast"):
-    """A width-8 reference `.tar` of a seeded JAX init whose np head is a
-    constant foreground, so both packages find instances (cut by the hv
-    maps of the random net)."""
-    from hover_net_tpu.models.checkpoints import save_torch_tar
-
+def forced_foreground_variables(nr_types=5, seed=2, mode="fast"):
+    """(JAX config, {params, batch_stats} as numpy) of a width-8 seeded
+    JAX init whose np head is a constant foreground, so both packages find
+    instances (cut by the hv maps of the random net)."""
     cfg = JaxConfig(mode=mode, nr_types=nr_types, width=WIDTH)
     model = JaxHoVerNet(cfg)
     size = cfg.patch_input_shape
@@ -129,6 +127,14 @@ def forced_foreground_tar(path, nr_types=5, seed=2, mode="fast"):
     head["kernel"] = np.zeros_like(head["kernel"])
     head["bias"] = np.array([-2.0, 2.0], np.float32)
     variables["params"]["decoder_np"]["u0_conv"] = head
+    return cfg, variables
+
+
+def forced_foreground_tar(path, nr_types=5, seed=2, mode="fast"):
+    """A reference `.tar` of `forced_foreground_variables`."""
+    from hover_net_tpu.models.checkpoints import save_torch_tar
+
+    cfg, variables = forced_foreground_variables(nr_types, seed, mode)
     save_torch_tar(path, variables, cfg)
     return path
 
