@@ -6,9 +6,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels from csrc/, one nvcc per source, started
-   together: post_proc_tail.cu (K1, K2 and K4) and fused_block.cu (K3);
-   prints K3's registers (ptxas) and its count of HGMMA (wgmma) and
-   UTMALDG (TMA load) instructions (cuobjdump), and fails without both;
+   together: post_proc_tail.cu (K1, K2 and K4) and fused_block.cu (K3),
+   whose build goes on beside phases 3-5 (they use K1 alone) and is
+   waited for at phase 6; prints K3's registers (ptxas) and its count of
+   HGMMA (wgmma) and UTMALDG (TMA load) instructions (cuobjdump), and
+   fails without both;
 3. K1 against its plain PyTorch version on the card: identical labels on
    a 1148^2 canvas of synthetic nuclei mirrored about a 1000^2 source
    (with its valid mask), a noisy map, an empty map and a 164^2 map;
@@ -131,10 +133,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (2 or 4 slots), striped, single, and prints each run's seconds (the
    striping overhead on one card);
 14. multi-device training on one card, one process a rank
-   (parallel/distributed.py), every rank on cuda:0: (a)
+   (parallel/distributed.py), every rank on cuda:0, the three spawns
+   below started at once (a rank's start is mostly host work): (a)
    `entry.dryrun_multichip(1)`, a one-rank NCCL group, then the striped
-   inference dryrun; (b) `dryrun_train_step(2, devices=["cuda:0"] * 2)`,
-   gloo with CUDA tensors: a finite loss and bit-identical ranks; (c) the
+   inference dryrun; (b) the step of `dryrun_train_step(2, devices=
+   ["cuda:0"] * 2)`, gloo with CUDA tensors: a finite loss and
+   bit-identical ranks; (c), in (b)'s spawn of the ranks
+   (`dp_check.dryrun_and_rank_steps`), the
    exactness check (parallel/dp_check.py): width 64, 256^2 -> 164^2, the
    model's body, heads and loss in float64 (cuDNN's double convolutions),
    2 ranks on a global batch of 4 for 3 steps in both freeze modes
@@ -144,17 +149,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    their scale; parameters 0.1 * lr and BN stats 1e-5 of their scale
    after step 3; frozen parameters bit-identical), the ranks
    bit-identical after step 3; (d) `TrainManager(devices=["cuda:0"] * 2)` on
-   phase 11's patches, both default phases for one epoch at per-rank
-   batches of 8 and 2 (phase 11's global 16 and 4): finite losses, the
-   freeze cut, one `.tar` an epoch from rank 0, the ranks checked
-   identical by the trainer after each phase, and the last `.tar`
-   through the tile manager. Prints each phase's ms per step and
+   32 of phase 11's training patches and 8 of its validation patches,
+   both default phases at per-rank batches of 8 and 2 (phase 11's
+   global 16 and 4), each for the epochs that give it 8 steps (4 and 1):
+   finite losses, the freeze cut, one `.tar` an epoch from rank 0, the
+   ranks checked identical by the trainer after each phase, and the last
+   `.tar` through the tile manager. Prints each phase's ms per step and
    patches/s beside the card line: two ranks sharing one card, not a
-   scaling number;
+   scaling number; each spawn of ranks logs every rank's timeline (up,
+   device bound, group joined, first step, returned, exited);
 15. the measurement entry points at full width (w64, bf16), each through
    its main(argv), each printing its JSON line: the untyped recipe
-   checkpoint (trained once, its seconds and sha256 printed beside the
-   recorded one, as phase 12's typed one is), cli/bench at its defaults
+   checkpoint (trained in a process of its own from the start of phase
+   11 to the end of phase 12, its sha256 printed beside the recorded
+   one, as phase 12's typed one is), cli/bench at its defaults
    (tiles/s of the json pipeline, device ms per stage, MFU, the proxy,
    one typed tile; the forward's ms and the tiles/s beside their record
    from before the BatchNorms were float32),
@@ -166,7 +174,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    time by layer group with cuDNN and with K3),
    cli/fused_encoder_drift --n 4 (one forward batch a tile, K3 4 times
    in each fused one; its three AJI pairs beside their record) and
-   cli/parity_drift_sweep --n 8 (AJI of the device path against the
+   cli/parity_drift_sweep --n 4 (AJI of the device path against the
    host oracle >= 0.93);
 16. original mode (270^2 -> 80^2 patches, the JAX package's default
    training configuration) at full width, typed (nr_types=5): (a) K1
@@ -178,8 +186,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phase 11's checks (finite losses, the freeze cut, each phase's `.tar`
    and stats.json) and one original-mode width-8 step on the card against
    the CPU with the body in float64 (1e-5 relative); (c) cli/eval_consep,
-   the CoNSeP recipe, on phase 12's held-out images in the CoNSeP layout
-   with (b)'s `.tar`: K1 once per image and identical to its plain version
+   the CoNSeP recipe, on two of phase 12's held-out images in the CoNSeP
+   layout with (b)'s `.tar`: K1 once per image and identical to its plain version
    on each image's stitched map, every json and mat written, both
    compute_stats lines printed; then the warm json pipeline's tiles/s and
    per-tile device split; (d) WSIInferManager in original mode on a
@@ -198,12 +206,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    of phase 11's patches, under deterministic algorithms: finite losses,
    the step going on from the `.msgpack`'s, the port's `.tar` written
    after each epoch, and the first resumed update from the `.msgpack`
-   within one float32 ulp of the one from the `.tar`;
+   within one float32 ulp of the one from the `.tar`; (d) phase 12's
+   recipe `.tar` through cli/convert_chkpt to the JAX package's
+   `.msgpack`: `load_model_state` of it equals the `.tar`'s on every
+   tensor, and its variables written back by `save_torch_tar` (keys
+   prefixed 'module.') reload equal to the original;
 18. prints the kernel table as one JSON line (K1's times at the WSI
    window batch; each kernel's bound from its inputs and outputs at the
    timed shape; the launches of K1 and K3 are phase 7's, phase 13's,
-   phase 15's and, for K1, phase 16's and phase 17's), the card line, and
-   last {"ok": true, "device": {...}}.
+   phase 15's and, for K1, phase 16's and phase 17's), the card line,
+   the seconds of each phase as one JSON line ({"phase_seconds": {"1":
+   s, ..., "17": s}, "parts": {...}, "total_s": s}; "2" is K1's build),
+   and last {"ok": true, "device": {...}}.
 
 Outputs go to build/chip_smoke/ in the checkout. On its way out, whether
 it passed or failed, the script stops every process it started (the
@@ -238,6 +252,21 @@ BF16_FLOPS = 989e12
 
 def log(msg):
     print(msg, flush=True)
+
+
+def use_bytecode_cache():
+    """Python's bytecode cache, under build/pycache, for this run and for
+    every process it starts. Where the interpreter is told to write none
+    (PYTHONDONTWRITEBYTECODE) and site-packages holds none, as on the
+    card's machine, every process compiles torch's modules anew: 6-9 s
+    of each rank's start there, against ~4 s from the cache (PERF.md
+    §6). This process compiles and writes them once; its children read
+    them."""
+    prefix = os.path.join(ROOT, "build", "pycache")
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
 
 
 # ------------------------------------------------------ synthetic data
@@ -687,8 +716,11 @@ def cuobjdump_path():
 
 def build_kernels():
     """Phase 2: post_proc_tail.cu (K1, K2, K4) and fused_block.cu (K3)
-    from csrc/, one nvcc each, started together; K3's registers from
-    ptxas and its wgmma (HGMMA) and TMA load (UTMALDG) instructions."""
+    from csrc/, one nvcc each, started together. Waits for K1's library
+    and returns `finish_k3`, which waits for K3's (its nvcc goes on
+    beside phases 3-5, which need K1 alone) and checks K3's registers
+    from ptxas and its wgmma (HGMMA) and TMA load (UTMALDG)
+    instructions; phase 6 calls it."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hover_net_tpu_torch.ops import fused_block_cuda, post_proc_cuda
@@ -698,27 +730,37 @@ def build_kernels():
         lib = build()
         return time.perf_counter() - t0, lib._name
 
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        futs = {name: ex.submit(timed, mod.build) for name, mod in (
-            ("K1/K2/K4", post_proc_cuda), ("K3", fused_block_cuda))}
-        libs = {}
-        for name, fut in futs.items():
-            secs, libs[name] = fut.result()
-            log(f"build: {name} built by nvcc and loaded in {secs:.3f} s "
-                f"({os.path.relpath(libs[name], ROOT)})")
-    k3_lib = libs["K3"]
-    with open(os.path.splitext(k3_lib)[0] + ".log") as f:
-        for line in f:
-            if "Used" in line or "spill" in line:
-                log(f"build: K3 ptxas: {line.strip()}")
-    sass = subprocess.run([cuobjdump_path(), "-sass", k3_lib],
-                          capture_output=True, text=True, check=True).stdout
-    counts = {op: sum(op in line for line in sass.splitlines())
-              for op in ("HGMMA", "UTMALDG")}
-    log(f"build: K3 SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
-        f"UTMALDG instructions")
-    if not counts["HGMMA"] or not counts["UTMALDG"]:
-        raise AssertionError("K3's SASS has no wgmma or no TMA load")
+    pool = ThreadPoolExecutor(max_workers=2)
+    futs = {name: pool.submit(timed, mod.build) for name, mod in (
+        ("K1/K2/K4", post_proc_cuda), ("K3", fused_block_cuda))}
+
+    def built(name):
+        secs, lib = futs[name].result()
+        log(f"build: {name} built by nvcc and loaded in {secs:.3f} s "
+            f"({os.path.relpath(lib, ROOT)})")
+        return lib
+
+    def finish_k3():
+        try:
+            k3_lib = built("K3")
+        finally:
+            pool.shutdown()
+        with open(os.path.splitext(k3_lib)[0] + ".log") as f:
+            for line in f:
+                if "Used" in line or "spill" in line:
+                    log(f"build: K3 ptxas: {line.strip()}")
+        sass = subprocess.run([cuobjdump_path(), "-sass", k3_lib],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {op: sum(op in line for line in sass.splitlines())
+                  for op in ("HGMMA", "UTMALDG")}
+        log(f"build: K3 SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
+            f"UTMALDG instructions")
+        if not counts["HGMMA"] or not counts["UTMALDG"]:
+            raise AssertionError("K3's SASS has no wgmma or no TMA load")
+
+    built("K1/K2/K4")
+    return finish_k3
 
 
 def make_wsi_inputs(work):
@@ -1744,6 +1786,35 @@ def log_beside_record(what, mean, low, record, card):
         f"{record[1] or 'not recorded'} (NVIDIA H100 80GB HBM3, 700.00 W)")
 
 
+class UntypedRecipe:
+    """Phase 15's untyped recipe checkpoint (`cli/bench.
+    train_e2e_checkpoint()`, cached under build/, where phase 15 reads it
+    and checks its sha256), trained in a process of its own from the
+    start of phase 11 to the end of phase 12: phase 11 spends half its
+    time on the host (writing the dataset, extracting patches, the CPU
+    side of the w8 step check) while the card idles. The training is
+    deterministic, the same weights whatever runs beside it."""
+
+    def __init__(self):
+        import multiprocessing
+
+        from hover_net_tpu_torch.cli import bench
+
+        self.t0 = time.perf_counter()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=bench.train_e2e_checkpoint, name="untyped-recipe")
+        self.proc.start()
+
+    def join(self):
+        """Waits for the training, fails if it failed, and returns its
+        seconds from its start."""
+        self.proc.join()
+        if self.proc.exitcode != 0:
+            raise AssertionError("the untyped recipe's training exited with "
+                                 f"{self.proc.exitcode}")
+        return time.perf_counter() - self.t0
+
+
 def log_sha256(what, path, secs, recorded_prefix):
     from hover_net_tpu_torch.cli import bench
 
@@ -1970,13 +2041,13 @@ DP_SCHEDULE = dict(lr=1.0e-4, step_epochs=1, steps_per_epoch=2, gamma=0.1)
 FROZEN_PREFIXES = ("d1.", "d2.", "d3.", "d0.units.")
 
 
-def dp_exactness(card, device="cuda:0"):
-    """Phase 14 (c): 2 ranks on `device` against the one-process step on
-    the same global batches, width 64, 256^2 -> 164^2, the body, heads
-    and loss in float64, 3 steps, both freeze modes, at the tolerances of
-    tests/test_torch_train_step.py (terms at every step, the gradients of
-    step 1, the parameters and BN stats after step 3, the freeze cut), and
-    the ranks bit-identical after the last step.
+DP_CASES = [(True, None), (False, None)]  # (freeze_encoder, mutation)
+
+
+def dp_inputs():
+    """The exactness check's model configuration (width 64, the body,
+    heads and loss in float64), seeded start state, and DP_STEPS global
+    batches of DP_GLOBAL patches, 256^2 -> 164^2.
 
     The heads run in float64 here (`head_dtype`): in float32, a rounding
     in the order of a head's sum moves some gradients near Adam's eps,
@@ -1985,14 +2056,11 @@ def dp_exactness(card, device="cuda:0"):
     import torch
 
     from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
-    from hover_net_tpu_torch.parallel import dp_check
 
     cfg = HoVerNetConfig(mode="fast", nr_types=5, width=DP_WIDTH,
                          dtype=torch.float64, head_dtype=torch.float64)
     start = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5, width=DP_WIDTH),
                      generator=torch.Generator().manual_seed(14)).state_dict()
-    params = [k for k, p in HoVerNet(HoVerNetConfig(
-        mode="fast", nr_types=5, width=8)).named_parameters()]
     rng = np.random.default_rng(14)
     (size, out), n = DP_SIZE, DP_GLOBAL
     data = [{
@@ -2001,12 +2069,36 @@ def dp_exactness(card, device="cuda:0"):
         "hv_map": rng.uniform(-1, 1, (n, out, out, 2)).astype(np.float32),
         "tp_map": rng.integers(0, 5, (n, out, out)).astype(np.int32),
     } for _ in range(DP_STEPS)]
-    t0 = time.perf_counter()
-    cases = [(True, None), (False, None)]
-    ranks = dp_check.rank_steps([device] * 2, cfg, start, data, cases,
-                                DP_SCHEDULE)
-    t_ranks = time.perf_counter() - t0
-    for (freeze, _), got in zip(cases, ranks):
+    return cfg, start, data
+
+
+def dp_ranks(inputs, device="cuda:0"):
+    """Phase 14 (b) and (c)'s ranks, in one spawn of 2 ranks on `device`
+    (`dp_check.dryrun_and_rank_steps`): (b) the step of
+    `dryrun_train_step(2, ...)` (its checks: a finite loss and
+    bit-identical ranks), then (c)'s DP_STEPS steps of both freeze modes
+    on `inputs` (`dp_inputs()`). Returns (the dryrun's loss, rank 0's
+    runs)."""
+    from hover_net_tpu_torch.parallel import dp_check
+
+    cfg, start, data = inputs
+    return dp_check.dryrun_and_rank_steps([device] * 2, cfg, start, data,
+                                          DP_CASES, DP_SCHEDULE)
+
+
+def dp_exactness(inputs, ranks, card, device="cuda:0"):
+    """Phase 14 (c): the ranks' runs against the one-process steps on the
+    same global batches, at the tolerances of
+    tests/test_torch_train_step.py (terms at every step, the gradients of
+    step 1, the parameters and BN stats after step 3, the freeze cut), and
+    the ranks bit-identical after the last step."""
+    from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
+    from hover_net_tpu_torch.parallel import dp_check
+
+    cfg, start, data = inputs
+    params = [k for k, p in HoVerNet(HoVerNetConfig(
+        mode="fast", nr_types=5, width=8)).named_parameters()]
+    for (freeze, _), got in zip(DP_CASES, ranks):
         t0 = time.perf_counter()
         want = dp_check.one_process_steps(device, cfg, start, data, freeze,
                                           DP_SCHEDULE)
@@ -2016,8 +2108,8 @@ def dp_exactness(card, device="cuda:0"):
         worst = dp_check.misses(got, want, start, params, frozen,
                                 DP_SCHEDULE["lr"])
         log(f"(c) w{DP_WIDTH} float64 body and heads, 2 ranks on {device} "
-            f"vs one process, freeze_encoder={freeze}, global batch {n}, "
-            f"{DP_STEPS} steps: worst error / tolerance "
+            f"vs one process, freeze_encoder={freeze}, global batch "
+            f"{DP_GLOBAL}, {DP_STEPS} steps: worst error / tolerance "
             + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
             + f"; ranks bit-identical: {got['equal']}; one process "
             f"{t_one:.1f} s ({card})")
@@ -2025,14 +2117,38 @@ def dp_exactness(card, device="cuda:0"):
         if max(worst.values()) > 1.0 or not got["equal"] or not finite:
             raise AssertionError("the 2-rank steps disagree with the "
                                  "one-process steps")
-    log(f"(c) both freeze modes on 2 ranks in {t_ranks:.1f} s (spawn "
-        "included)")
+
+
+# phase 14 (d): the trainer's ranks on the first DP_PATCHES of phase 11's
+# training and validation patches, phase 0 for as many epochs as give
+# it 8 steps at the global batch 16, phase 1 for one epoch (8 steps at
+# 4): each step of two ranks sharing the card waits ~533 times on the
+# other rank's collectives, ~1.3 s a step
+DP_PATCHES = {"train": 32, "valid": 8}
+DP_MIN_STEPS = 8
+
+
+def dp_patch_subset(root):
+    """Directories of symlinks to the first DP_PATCHES of phase 11's
+    patches, by name; returns {split: dir}."""
+    out = {}
+    for split, n in DP_PATCHES.items():
+        src = os.path.join(root, "patches", split)
+        out[split] = os.path.join(root, "patches_2ranks", split)
+        os.makedirs(out[split])
+        names = sorted(f for f in os.listdir(src) if f.endswith(".npy"))
+        if len(names) < n:
+            raise AssertionError(f"{len(names)} {split} patches, want {n}")
+        for name in names[:n]:
+            os.symlink(os.path.join(src, name), os.path.join(out[split], name))
+    return out
 
 
 def dp_trainer(work, card, device="cuda:0"):
-    """Phase 14 (d): TrainManager(devices=["cuda:0"] * 2) on phase 11's
-    patches, both default phases for one epoch each at per-rank batches of
-    8 and 2 (the global 16 and 4 of phase 11)."""
+    """Phase 14 (d): TrainManager(devices=["cuda:0"] * 2) on DP_PATCHES
+    of phase 11's patches, both default phases at per-rank batches of 8
+    and 2 (the global 16 and 4 of phase 11), each for the epochs that
+    give it DP_MIN_STEPS steps."""
     import torch
 
     from hover_net_tpu_torch.config import TrainConfig
@@ -2043,13 +2159,14 @@ def dp_trainer(work, card, device="cuda:0"):
 
     root = os.path.join(work, "train")
     logs = os.path.join(root, "logs_2ranks")
+    dirs = dp_patch_subset(root)
     config = TrainConfig(
         model_mode="fast", nr_types=5, width=TRAIN_WIDTH, log_dir=logs,
-        train_dir_list=[os.path.join(root, "patches", "train")],
-        valid_dir_list=[os.path.join(root, "patches", "valid")],
-        nr_procs_train=4, nr_procs_valid=4)
+        train_dir_list=[dirs["train"]], valid_dir_list=[dirs["valid"]],
+        nr_procs_train=1, nr_procs_valid=1)
     for phase, batch in zip(config.phases, (8, 2)):
-        phase.nr_epochs = 1
+        steps = DP_PATCHES["train"] // (2 * batch)
+        phase.nr_epochs = -(-DP_MIN_STEPS // steps)
         phase.batch_size = dict(phase.batch_size, train=batch)
     t0 = time.perf_counter()
     infos = TrainManager(config, devices=[device] * 2).run()
@@ -2061,29 +2178,31 @@ def dp_trainer(work, card, device="cuda:0"):
                                  f"steps, losses {info.losses}")
         ms, rate, share, run_rate = step_stats(info, batch)
         log(f"(d) 2 ranks on one card, phase {idx} (freeze_encoder="
-            f"{phase.freeze_encoder}, global batch {batch}): "
+            f"{phase.freeze_encoder}, global batch {batch}, "
+            f"{phase.nr_epochs} epoch(s) of {DP_PATCHES['train']} patches): "
             f"{len(info.losses)} steps, {ms:.3f} ms per step (median after "
             f"2), {rate:.1f} patches/s per step, rank 0's loader wait "
             f"{100 * share:.1f} %; {run_rate:.1f} patches/s over the phase's "
             f"run of {info.run_s:.1f} s; overall_loss {info.losses[0]:.4f} "
             f"-> {info.losses[-1]:.4f} ({card}; two ranks sharing one card, "
             "not a scaling number)")
-    tars = [os.path.join(logs, f"{i:02d}", "net_epoch=1.tar")
-            for i in range(2)]
-    if not all(os.path.exists(t) for t in tars):
-        raise AssertionError("2 ranks: a phase wrote no checkpoint")
+    tars = [[os.path.join(logs, f"{i:02d}", f"net_epoch={e}.tar")
+             for e in range(1, phase.nr_epochs + 1)]
+            for i, phase in enumerate(config.phases)]
+    if not all(os.path.exists(t) for ts in tars for t in ts):
+        raise AssertionError("2 ranks: an epoch wrote no checkpoint")
     start = HoVerNet(HoVerNetConfig(mode="fast", nr_types=5,
                                     width=TRAIN_WIDTH),
                      generator=torch.Generator().manual_seed(config.seed)
                      ).state_dict()
-    p0 = load_torch_tar(tars[0])
+    p0 = load_torch_tar(tars[0][-1])
     params = [k for k, _ in HoVerNet(HoVerNetConfig(
         mode="fast", nr_types=5, width=8)).named_parameters()]
     bad = [k for k in params
            if torch.equal(p0[k], start[k]) != k.startswith(FROZEN_PREFIXES)]
     if bad:
         raise AssertionError(f"2 ranks: the freeze cut is off at {bad[:5]}")
-    mgr = TileInferManager(model_path=tars[1], mode="fast", nr_types=5,
+    mgr = TileInferManager(model_path=tars[1][-1], mode="fast", nr_types=5,
                            width=TRAIN_WIDTH, device=device,
                            type_info_path=os.path.join(ROOT,
                                                        "type_info.json"))
@@ -2094,48 +2213,72 @@ def dp_trainer(work, card, device="cuda:0"):
     log(f"(d) TrainManager on 2 ranks: 2 phases in {wall:.1f} s wall (spawn, "
         "data workers and validation included); frozen parameters "
         "unchanged after phase 1 and the rest moved; the ranks identical "
-        "after each phase (the trainer checks it); one .tar an epoch; the "
-        "last through TileInferManager: one json")
+        f"after each phase (the trainer checks it); one .tar an epoch "
+        f"({sum(map(len, tars))}); the last through TileInferManager: one "
+        "json")
     del mgr
 
 
-def check_multi_device_training(work, card, device="cuda:0"):
+def check_multi_device_training(work, card, device="cuda:0",
+                                parts=lambda name, secs: None):
     """Phase 14: (a) dryrun_multichip(1), a one-rank NCCL group on cuda:0;
-    (b) dryrun_train_step on 2 ranks on cuda:0 (gloo, CUDA tensors);
-    (c) the exactness check; (d) the trainer on 2 ranks."""
+    (b) the dryrun's step on 2 ranks on cuda:0 (gloo, CUDA tensors) and
+    (c) the exactness check, in one spawn; (d) the trainer on 2 ranks.
+    The three spawns run at once ((a) and (b)+(c) on threads of this
+    process, which wait for their ranks): most of a spawn's seconds are
+    each rank's imports and start on the host (run_ranks logs every
+    rank's timeline). (c)'s one-process steps follow its ranks on its
+    thread; they run in float64, which cuDNN's process-wide TF32 setting
+    does not touch.
+    `parts(name, s)` takes each part's seconds, from the phase's start."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from hover_net_tpu_torch.entry import dryrun_multichip
     from hover_net_tpu_torch.parallel.distributed import backend_for
-    from hover_net_tpu_torch.parallel.train_parallel import dryrun_train_step
 
-    t_start = t0 = time.perf_counter()
-    dryrun_multichip(1, [device])
-    log(f"(a) dryrun_multichip(1) (one rank on {device}, "
-        f"{backend_for([device])}) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dryrun_train_step(2, devices=[device] * 2)
-    log(f"(b) dryrun_train_step on 2 ranks on {device} "
-        f"({backend_for([device] * 2)}) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    dp_exactness(card, device)
-    torch.cuda.empty_cache()
-    dp_trainer(work, card, device)
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        out = fn(*args)
+        secs = time.perf_counter() - t_start
+        parts(name, secs)
+        return out, secs
+
+    def b_and_c():
+        inputs = dp_inputs()
+        loss, ranks = dp_ranks(inputs, device)
+        log(f"(b) dryrun_train_step's step on 2 ranks on {device} "
+            f"({backend_for([device] * 2)}): loss {loss:.4f}, finite, the "
+            f"ranks bit-identical; (b) and (c)'s ranks done "
+            f"{time.perf_counter() - t_start:.1f} s into the phase (one "
+            "spawn)")
+        dp_exactness(inputs, ranks, card, device)
+
+    with ThreadPoolExecutor(2) as pool:
+        run_a = pool.submit(timed, "14 (a)", dryrun_multichip, 1, [device])
+        run_bc = pool.submit(timed, "14 (b)+(c)", b_and_c)
+        timed("14 (d)", dp_trainer, work, card, device)
+        _, secs = run_a.result()
+        log(f"(a) dryrun_multichip(1) (one rank on {device}, "
+            f"{backend_for([device])}) done {secs:.1f} s into the phase")
+        run_bc.result()
     torch.cuda.empty_cache()
     log(f"phase 14 in {time.perf_counter() - t_start:.1f} s")
 
 
 # ------------------------------------------------ measurement entry points
 
-def check_measurement(work, card):
+def check_measurement(work, card, parts=lambda name, secs: None):
     """Phase 15: the measurement CLIs at full width (w64, bf16), each
     through its main(argv), which prints its JSON line: the untyped
     recipe checkpoint (cached after its first run), cli.bench at its
     defaults, cli.bench_wsi on phase 7's size with cuDNN and with K3,
     cli.bench_train at batch 16 and 4, cli.probe_device_time --split
     forward, cli.fused_encoder_drift and cli.parity_drift_sweep. Checks
-    each line and returns the launches of K1 and K3 over the phase."""
+    each line and returns the launches of K1 and K3 over the phase;
+    `parts(name, s)` takes the recipe's seconds."""
     import torch
 
     from hover_net_tpu_torch.cli import (
@@ -2152,6 +2295,7 @@ def check_measurement(work, card):
     root = os.path.join(work, "measure")
     t_start = t0 = time.perf_counter()
     ckpt = bench.train_e2e_checkpoint()
+    parts("15 recipe", time.perf_counter() - t0)
     log_sha256(f"untyped recipe checkpoint {os.path.relpath(ckpt, ROOT)}",
                ckpt, time.perf_counter() - t0, RECIPE_SHA256["untyped"])
     wsi = ["--size", str(SLIDE), "--chunk_shape", "2048", "--workdir",
@@ -2170,7 +2314,7 @@ def check_measurement(work, card):
         ("fused_encoder_drift", fused_encoder_drift.main, ["--n", "4"],
          False),
         ("parity_drift_sweep", parity_drift_sweep.main,
-         ["--n", "8", "--csv", os.path.join(root, "parity.csv")], False),
+         ["--n", "4", "--csv", os.path.join(root, "parity.csv")], False),
     ]
     proc_tail.launches = fused_block_apply.launches = 0
     res, secs = {}, {}
@@ -2263,6 +2407,7 @@ def check_measurement(work, card):
 # ------------------------------------------------------- original mode
 
 ORIG_SLIDE = 2048   # side of phase 16's WSI pseudo-slide
+ORIG_EVAL_IMAGES = 2  # phase 16 (c): the first of phase 12's held-out images
 ORIG_SLIDE_NUCLEI = 400  # phase 7's density
 
 
@@ -2351,8 +2496,9 @@ STAT_PREFIX = "["  # compute_stats prints its means as one numpy array line
 
 
 def orig_eval(work, tar, width, device):
-    """Phase 16 (c): cli/eval_consep on phase 12's held-out images in the
-    CoNSeP layout (raw types), original mode, width 64, with (b)'s `.tar`;
+    """Phase 16 (c): cli/eval_consep on ORIG_EVAL_IMAGES of phase 12's
+    held-out images in the CoNSeP layout (raw types), original mode,
+    width 64, with (b)'s `.tar`;
     K1 held against its plain version on each image's stitched map inside
     the run; then the json pipeline once more on the warm manager for the
     tile's device split and tiles/s. Returns K1's launches."""
@@ -2365,10 +2511,14 @@ def orig_eval(work, tar, width, device):
     from hover_net_tpu_torch.ops import post_proc_cuda as k1
 
     consep = os.path.join(work, "orig", "CoNSeP")
+    names = [f"img{i}" for i in range(ORIG_EVAL_IMAGES)]
     for sub in ("Images", "Labels"):
-        shutil.copytree(os.path.join(work, "eval", "consep", sub),
-                        os.path.join(consep, "Test", sub))
-    names = [f"img{i}" for i in range(EVAL_IMAGES)]
+        src = os.path.join(work, "eval", "consep", sub)
+        os.makedirs(os.path.join(consep, "Test", sub))
+        for f in sorted(os.listdir(src)):
+            if os.path.splitext(f)[0] in names:
+                shutil.copy(os.path.join(src, f),
+                            os.path.join(consep, "Test", sub))
     canvas = orig_canvases()[1]
     n_patches = (canvas // 80) ** 2
     compared = []
@@ -2397,11 +2547,11 @@ def orig_eval(work, tar, width, device):
     for line in lines:
         log(f"eval_consep | {line}")
     stats = [line for line in lines if line.startswith(STAT_PREFIX)]
-    log(f"(c) eval_consep: {EVAL_IMAGES} images of {SRC_HW}^2 ({n_patches} "
-        f"patches of 270^2 each, a {canvas}^2 canvas) in {secs:.3f} s; K1 "
-        f"launches {launches}; "
+    log(f"(c) eval_consep: {ORIG_EVAL_IMAGES} images of {SRC_HW}^2 "
+        f"({n_patches} patches of 270^2 each, a {canvas}^2 canvas) in "
+        f"{secs:.3f} s; K1 launches {launches}; "
         f"K1 vs plain on each stitched map {compared}")
-    if launches != EVAL_IMAGES or len(compared) != EVAL_IMAGES \
+    if launches != ORIG_EVAL_IMAGES or len(compared) != ORIG_EVAL_IMAGES \
             or any(n for _, n in compared) \
             or any(shape != (1, canvas, canvas) for shape, _ in compared):
         raise AssertionError("eval_consep: K1 did not run once an image, or "
@@ -2421,17 +2571,17 @@ def orig_eval(work, tar, width, device):
                                     save_format="json")
     wall = time.perf_counter() - t0
     launches += k1.proc_tail.launches
-    if written != EVAL_IMAGES or k1.proc_tail.launches != EVAL_IMAGES:
+    if written != ORIG_EVAL_IMAGES or k1.proc_tail.launches != ORIG_EVAL_IMAGES:
         raise AssertionError("the warm json run did not write every image "
                              "through K1")
     split = {k: statistics.median(t.get(k, float("nan"))
-                                  for t in mgr.timings[-EVAL_IMAGES:])
+                                  for t in mgr.timings[-ORIG_EVAL_IMAGES:])
              for k in ("forward", "energy", "post_proc_tail", "tables",
                        "finalize_ms")}
-    nuclei = [t["n_nuclei"] for t in mgr.timings[-EVAL_IMAGES:]]
+    nuclei = [t["n_nuclei"] for t in mgr.timings[-ORIG_EVAL_IMAGES:]]
     flops = forward_flops(mgr.model, n_patches)[0]
-    log(f"(c) original-mode tile, warm json pipeline: {EVAL_IMAGES / wall:.3f}"
-        f" tiles/s ({wall:.3f} s for {EVAL_IMAGES}); per tile (median, ms): "
+    log(f"(c) original-mode tile, warm json pipeline: {ORIG_EVAL_IMAGES / wall:.3f}"
+        f" tiles/s ({wall:.3f} s for {ORIG_EVAL_IMAGES}); per tile (median, ms): "
         f"forward over {n_patches} patches {split['forward']:.3f} "
         f"({flops / 1e12:.2f} TFLOP by FlopCounterMode, "
         f"{flops / split['forward'] / 1e9:.1f} TFLOP/s), energy "
@@ -2718,13 +2868,64 @@ def msgpack_resume(work, train_tar, card, device):
     return secs["msgpack"]
 
 
+def convert_round_trip(work, tar, card):
+    """Phase 17 (d): phase 12's typed recipe `.tar` through the port's
+    cli/convert_chkpt (the JAX CLI's arguments) to the JAX package's
+    `.msgpack`: `load_model_state` of the `.msgpack` equals that of the
+    `.tar` on every tensor (the `.tar` has num_batches_tracked besides);
+    then the `.msgpack`'s variables written back as a reference `.tar`
+    (`save_torch_tar`, keys prefixed 'module.') reload equal to the
+    original. Returns its seconds."""
+    import torch
+
+    from hover_net_tpu_torch.cli import convert_chkpt
+    from hover_net_tpu_torch.models import checkpoints as ckpt
+    from hover_net_tpu_torch.models.hovernet import HoVerNetConfig
+
+    root = os.path.join(work, "jax_ckpt", "convert")
+    os.makedirs(root, exist_ok=True)
+    cfg = HoVerNetConfig(mode="fast", nr_types=5, width=TRAIN_WIDTH)
+    msgpack = os.path.join(root, "recipe_typed.msgpack")
+    back = os.path.join(root, "recipe_typed_back.tar")
+    t0 = time.perf_counter()
+    convert_chkpt.main(["--input", tar, "--output", msgpack, "--mode",
+                        "fast", "--nr_types", "5"])
+    t_convert = time.perf_counter() - t0
+    want = ckpt.load_model_state(tar, cfg)
+    variables, extra = ckpt.load_checkpoint(msgpack)
+    ckpt.save_torch_tar(back, variables, cfg)
+    secs = time.perf_counter() - t0
+    prefixed = all(k.startswith("module.") for k in torch.load(
+        back, map_location="cpu", weights_only=True)["desc"])
+    off = {}
+    for name, got in (("msgpack", ckpt.load_model_state(msgpack, cfg)),
+                      ("back", ckpt.load_torch_tar(back))):
+        lost = set(want) - set(got)
+        off[name] = sorted(k for k in got if k not in want
+                           or not torch.equal(got[k], want[k]))
+        off[name] += sorted(k for k in lost
+                            if not k.endswith("num_batches_tracked"))
+    log(f"(d) cli/convert_chkpt {os.path.basename(tar)} -> "
+        f"{os.path.relpath(msgpack, ROOT)} ("
+        f"{os.path.getsize(msgpack) / 2**20:.1f} MiB) in {t_convert:.2f} s, "
+        f"extra {extra}; back through save_torch_tar ('module.' keys: "
+        f"{prefixed}) in {secs:.2f} s in all; tensors off: .msgpack "
+        f"{len(off['msgpack'])}, back {len(off['back'])} of {len(want)} "
+        f"({card})")
+    if off["msgpack"] or off["back"] or not prefixed \
+            or extra["nr_types"] != 5:
+        raise AssertionError(f"convert_chkpt round trip: {off}")
+    return secs
+
+
 def check_jax_checkpoints(work, eval_tar, train_tar, card, device="cuda"):
     """Phase 17: the JAX package's checkpoint format on the card, without
     flax: (a) the JAX stack is not imported, (b) cli/run_infer tile on a
     `.msgpack` of phase 12's recipe against its `.tar`, (c) run_train
     --resume of a phase whose last checkpoint is a JAX `.msgpack` and
-    `.opt` against the same phase resumed from its `.tar`. Returns K1's
-    launches in (b)'s `.msgpack` run."""
+    `.opt` against the same phase resumed from its `.tar`, (d) the `.tar`
+    through cli/convert_chkpt and back through save_torch_tar. Returns
+    K1's launches in (b)'s `.msgpack` run."""
     import torch
 
     t_start = time.perf_counter()
@@ -2733,26 +2934,37 @@ def check_jax_checkpoints(work, eval_tar, train_tar, card, device="cuda"):
     torch.cuda.empty_cache()
     resume_s = msgpack_resume(work, train_tar, card, device)
     torch.cuda.empty_cache()
+    convert_s = convert_round_trip(work, eval_tar, card)
     log(f"phase 17 in {time.perf_counter() - t_start:.1f} s: tile from the "
-        f".msgpack {tile_s:.1f}, resume from the .msgpack {resume_s:.1f}; "
-        f"K1 launches {launches} ({card})")
+        f".msgpack {tile_s:.1f}, resume from the .msgpack {resume_s:.1f}, "
+        f"convert and back {convert_s:.1f}; K1 launches {launches} ({card})")
     return launches
 
 
 def main():
+    import logging
+
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    logging.basicConfig(
+        level=logging.INFO,
+        format="|%(asctime)s.%(msecs)03d| [%(levelname)s] %(message)s",
+        datefmt="%Y-%m-%d|%H:%M:%S")
     t_main = time.perf_counter()
+    lap = Laps()
     dev = torch.device("cuda")
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} ({card}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+    lap("1")
 
-    build_kernels()
+    finish_k3 = build_kernels()
+    lap("2")
 
     k1 = check_kernel(dev)
+    lap("3")
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -2763,13 +2975,16 @@ def main():
     # model, so a replica is made on the host to show model_on's copy
     mgr.model_on(torch.device("cpu"))
     mgr._replicas.clear()
+    lap("4")
     check_forward(mgr)
     finalize_real_nuclei(mgr, k1["canvas"])
     del mgr, k1["canvas"]
     torch.cuda.empty_cache()
+    lap("5")
 
     from hover_net_tpu_torch.infer.wsi import WSIInferManager
 
+    finish_k3()
     tar, dirs = make_wsi_inputs(work)
     wsi_mgr = WSIInferManager(
         model_path=tar, mode="fast", nr_types=None, width=64,
@@ -2779,39 +2994,54 @@ def main():
     k3 = check_k3(wsi_mgr.model)
     check_fused_forward(wsi_mgr.model)
     torch.cuda.empty_cache()
+    lap("6")
     k3_launches, k1_launches = run_wsi(wsi_mgr, dirs)
+    lap("7")
     k1_wsi = wsi_real_nuclei(wsi_mgr, work)
     del wsi_mgr
     torch.cuda.empty_cache()
+    lap("8")
 
     from hover_net_tpu_torch.cli.probe_pp_stages import canvas_inputs
 
     canvas = canvas_inputs(SRC_HW, dev)
     k2 = check_k2(dev, canvas)
+    lap("9")
     k4 = check_k4(canvas)
     del canvas
     torch.cuda.empty_cache()
+    lap("10")
 
+    untyped = UntypedRecipe()
     train_tar = check_training(work)
     torch.cuda.empty_cache()
+    lap("11")
     from hover_net_tpu_torch.cli import bench
 
     t0 = time.perf_counter()
     eval_tar = bench.train_e2e_checkpoint(nr_types=5)
+    lap.part("12 recipe", time.perf_counter() - t0)
     log_sha256("phase 12 checkpoint (the typed recipe of cli/bench.py)",
                eval_tar, time.perf_counter() - t0, RECIPE_SHA256["typed"])
     check_evaluation(work, eval_tar)
     torch.cuda.empty_cache()
+    lap.part("15 recipe, from phase 11 on", untyped.join())
+    lap("12")
     k1_mesh, k3_mesh = check_multi_device(work, dirs, card)
     k1_launches += k1_mesh
     k3_launches += k3_mesh
-    check_multi_device_training(work, card)
-    k1_m, k3_m = check_measurement(work, card)
+    lap("13")
+    check_multi_device_training(work, card, parts=lap.part)
+    lap("14")
+    k1_m, k3_m = check_measurement(work, card, parts=lap.part)
     k1_launches += k1_m
     k3_launches += k3_m
+    lap("15")
     k1_o, _ = check_original_mode(work, card)
     k1_launches += k1_o
+    lap("16")
     k1_launches += check_jax_checkpoints(work, eval_tar, train_tar, card)
+    lap("17")
     log_bn_checked("all phases")
     if not all(BN_CHECKED.values()):
         raise AssertionError(f"a kind of model went unchecked: {BN_CHECKED}")
@@ -2837,12 +3067,33 @@ def main():
         entry("post_proc_stages", "post_proc_tail.cu",
               "scripts/probe_pp_stages.py:73", k4["launches"], k4),
     ]
-    log(f"chip_smoke: all phases in {time.perf_counter() - t_main:.1f} s")
+    total = time.perf_counter() - t_main
+    log(f"chip_smoke: all phases in {total:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
+    print(json.dumps({"phase_seconds": lap.phases, "parts": lap.parts,
+                      "total_s": round(total, 1)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+class Laps:
+    """The run's seconds by phase: `lap(name)` closes phase `name` (its
+    seconds since the last lap); `part(name, s)` notes a part of a phase
+    (a recipe's training, a spawn of ranks)."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.phases, self.parts = {}, {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.phases[name] = round(now - self.t, 1)
+        self.t = now
+
+    def part(self, name, secs):
+        self.parts[name] = round(secs, 1)
 
 
 def child_pids():
@@ -2883,6 +3134,7 @@ def stop_children():
 
 
 if __name__ == "__main__":
+    use_bytecode_cache()
     try:
         main()
     finally:

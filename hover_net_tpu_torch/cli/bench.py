@@ -15,7 +15,8 @@ readouts:
 - `train_e2e_checkpoint`: bench.py's `_train_e2e_checkpoint` with the
   port's train step: width 64, fast mode, untyped (or `nr_types` with
   each instance's type drawn from the same rng), 400 steps at batch 8,
-  Adam at 3e-4, batches drawn in process from one seeded rng, weights
+  Adam at 3e-4, batches drawn from one seeded rng (their tiles by
+  worker processes while the step runs: data/synthetic.py), weights
   from a seeded `torch.Generator`, float32 on deterministic cuDNN and
   cuBLAS algorithms (`deterministic_training`), so that every run on a
   card gives the same weights. The `.tar` is cached under
@@ -53,6 +54,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import hashlib
 import json
 import os
@@ -69,6 +71,11 @@ import cv2
 import numpy as np
 import torch
 
+from ..data.synthetic import (
+    pooled_recipe_batches,
+    recipe_batches,  # noqa: F401 (bench's name for the recipe's batches)
+    synth_nuclei_image,
+)
 from ..data.tiling import bucket_grid_dim, prepare_tile_patching
 from ..data.train_pipeline import device_prefetch
 from ..infer.base import resolve_device
@@ -77,13 +84,12 @@ from ..models.checkpoints import load_torch_tar, save_train_tar
 from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..ops.nvcc_build import BUILD_DIR
 from ..ops.post_proc_device import proc_np_hv_batch
-from ..ops.targets import gen_instance_hv_map, gen_targets
+from ..ops.targets import gen_instance_hv_map
 from ..parallel.train_parallel import (
     init_train_state,
     make_optimizer,
     make_train_step,
 )
-from ..utils.crops import cropping_center
 
 BENCH_DIR = os.path.join(BUILD_DIR, "bench")
 # dense bf16 tensor-core peak of one H100 SXM (NVIDIA data sheet): the
@@ -96,8 +102,11 @@ RECIPE_LR = 3e-4
 RECIPE_SOURCES = ("cli/bench.py", "parallel/train_parallel.py",
                   "models/hovernet.py", "models/blocks.py", "ops/losses.py",
                   "ops/targets.py", "data/train_pipeline.py",
-                  "models/checkpoints.py", "utils/crops.py")
-AHEAD = 4  # recipe batches drawn ahead of the training step
+                  "models/checkpoints.py", "utils/crops.py",
+                  "data/synthetic.py")
+# worker processes that draw the recipe's tiles while the step runs (its
+# host work, ~170 ms a batch of 8 in one process, would hold the step)
+RECIPE_WORKERS = 4
 # bench.py's repetitions of the secondary readouts: the multi-image rate
 # (median of 3 reps of 10 tiles), the proxy (best of 3 reps of 10 tiles),
 # and the warm tiles of the device-time median
@@ -107,26 +116,6 @@ DEVICE_TILES = 10
 TYPE_INFO = {0: ("nolabe", (0, 0, 0)), 1: ("neopla", (255, 0, 0)),
              2: ("inflam", (0, 255, 0)), 3: ("connec", (0, 0, 255)),
              4: ("necros", (255, 255, 0)), 5: ("no-neo", (255, 165, 0))}
-
-
-def synth_nuclei_image(h, w, seed=1, n_nuclei=1200):
-    """H&E-ish synthetic tile: dark-purple disks on a light background."""
-    rng = np.random.default_rng(seed)
-    img = np.full((h, w, 3), 225, np.float32)
-    img += rng.normal(0, 4, img.shape)
-    inst = np.zeros((h, w), np.int32)
-    yy, xx = np.mgrid[-12:13, -12:13]
-    k = 1
-    for _ in range(n_nuclei):
-        cy, cx = int(rng.integers(14, h - 14)), int(rng.integers(14, w - 14))
-        r = int(rng.integers(5, 11))
-        m = (yy**2 + xx**2) <= r * r
-        sub = inst[cy - 12: cy + 13, cx - 12: cx + 13]
-        sub[m & (sub == 0)] = k
-        k += 1
-        col = np.array([120, 70, 150]) + rng.normal(0, 10, 3)
-        img[cy - 12: cy + 13, cx - 12: cx + 13][m] = col
-    return np.clip(img, 0, 255).astype(np.uint8), inst
 
 
 def synth_pred_map(h, w, n_nuclei=1200, seed=0):
@@ -147,32 +136,6 @@ def synth_pred_map(h, w, n_nuclei=1200, seed=0):
 
 
 # ------------------------------------------------------------ checkpoint
-
-def recipe_batches(rng, batch: int, nr_types: Optional[int] = None):
-    """Endless training batches of the checkpoint recipe, drawn from `rng`
-    as bench.py:86-101 draws them: `batch` synthetic 256^2 tiles of 70
-    nuclei, each seeded from `rng`, with their np and hv targets at 164^2.
-    With `nr_types`, each instance's type is drawn from `rng` in
-    1..nr_types-1 after its tile, and `tp_map` is added."""
-    while True:
-        imgs, nps, hvs, tps = [], [], [], []
-        for _ in range(batch):
-            img, inst = synth_nuclei_image(
-                256, 256, seed=int(rng.integers(1 << 30)), n_nuclei=70)
-            t = gen_targets(inst, (164, 164))
-            imgs.append(img.astype(np.float32))
-            nps.append(t["np_map"].astype(np.int32))
-            hvs.append(t["hv_map"].astype(np.float32))
-            if nr_types is not None:
-                types = rng.integers(1, nr_types, int(inst.max()) + 1)
-                tps.append(cropping_center(np.where(inst > 0, types[inst], 0),
-                                           (164, 164)).astype(np.int32))
-        out = {"img": np.stack(imgs), "np_map": np.stack(nps),
-               "hv_map": np.stack(hvs)}
-        if nr_types is not None:
-            out["tp_map"] = np.stack(tps)
-        yield out
-
 
 @contextlib.contextmanager
 def deterministic_training():
@@ -221,6 +184,16 @@ def state_sha256(state: Dict[str, torch.Tensor]) -> str:
 
 
 def checkpoint_sha256(path: str) -> str:
+    """`state_sha256` of a `.tar`'s state dict, computed once per file
+    version in this process (each measurement CLI prints the cached
+    recipe's; reading a trainer `.tar` takes seconds)."""
+    st = os.stat(path)
+    return _checkpoint_sha256(os.path.abspath(path), st.st_mtime_ns,
+                              st.st_size)
+
+
+@functools.lru_cache(maxsize=8)
+def _checkpoint_sha256(path: str, mtime_ns: int, size: int) -> str:
     return state_sha256(load_torch_tar(path))
 
 
@@ -257,28 +230,8 @@ def train_e2e_checkpoint(steps=400, batch=8, seed=0, width=64, nr_types=None,
               f"{checkpoint_sha256(path)}", flush=True)
         return path
 
-    host_s = 0.0
-    gen = recipe_batches(np.random.default_rng(seed), batch, nr_types)
-
-    def draw():
-        nonlocal host_s  # written by the one drawing thread only
-        t0 = time.perf_counter()
-        b = next(gen)
-        host_s += time.perf_counter() - t0
-        return b
-
-    def batches(pool):
-        """The recipe's batches in order, drawn by one worker thread
-        AHEAD batches ahead of the step, so that the host's drawing
-        overlaps the device's steps."""
-        futs = deque(pool.submit(draw) for _ in range(min(AHEAD, steps)))
-        for i in range(steps):
-            b = futs.popleft().result()
-            if i + AHEAD < steps:
-                futs.append(pool.submit(draw))
-            yield b
-
-    with deterministic_training(), ThreadPoolExecutor(max_workers=1) as pool:
+    host_s = []
+    with deterministic_training():
         model = HoVerNet(HoVerNetConfig(mode="fast", nr_types=nr_types,
                                         width=width),
                          generator=torch.Generator().manual_seed(seed))
@@ -289,19 +242,24 @@ def train_e2e_checkpoint(steps=400, batch=8, seed=0, width=64, nr_types=None,
         wait_s = []
         t0 = time.perf_counter()
         losses = []
-        for i, b in enumerate(device_prefetch(batches(pool), dev,
-                                              wait_s=wait_s)):
-            state, (terms, _) = step_fn(state, b)
-            if i % 100 == 0 or i == steps - 1:
-                losses.append(float(terms["overall_loss"]))
-                print(f"# e2e-ckpt train step {i}: loss={losses[-1]:.4f} "
-                      f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        with contextlib.closing(pooled_recipe_batches(
+                seed, batch, steps, nr_types, workers=RECIPE_WORKERS,
+                host_s=host_s)) as stream:
+            for i, b in enumerate(device_prefetch(stream, dev,
+                                                  wait_s=wait_s)):
+                state, (terms, _) = step_fn(state, b)
+                if i % 100 == 0 or i == steps - 1:
+                    losses.append(float(terms["overall_loss"]))
+                    print(f"# e2e-ckpt train step {i}: loss="
+                          f"{losses[-1]:.4f} "
+                          f"({time.perf_counter() - t0:.1f}s)", flush=True)
         wall = time.perf_counter() - t0
     if not np.all(np.isfinite(losses)):
         raise FloatingPointError(f"e2e checkpoint: losses {losses}")
     save_train_tar(path, model, state.optimizer, state.step)
     print(f"# e2e checkpoint: {steps} steps at batch {batch} on {dev} in "
-          f"{wall:.1f} s (host batches {host_s:.1f} s, waited for "
+          f"{wall:.1f} s (host batches {sum(host_s):.1f} s in "
+          f"{RECIPE_WORKERS} worker processes, waited for "
           f"{sum(wait_s):.1f} s), loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
           f"sha256 {state_sha256(model.state_dict())}; {path}", flush=True)
     return path

@@ -26,20 +26,10 @@ import torch
 from ..models.checkpoints import load_model_state
 from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..ops.instance_table import emit_nuc_json
-from ..parallel.mesh import canonical_device
+from ..parallel.mesh import canonical_device, resolve_device
 from .steps import forward_batches
 
 logger = logging.getLogger("hover_net_tpu_torch")
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA device without a GPU raises
-    (there is no fallback to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available (pass --device cpu to run on the CPU)")
-    return dev
 
 
 def resolve_devices(n_devices: int, device) -> Tuple[torch.device, ...]:

@@ -16,7 +16,9 @@ it as `<path>.opt`; `load_train_msgpack` reads such a pair for `--resume`
 state) and `save_train_msgpack` writes one.
 
 `state_dict_from_jax` carries a JAX {params, batch_stats} tree (nested
-numpy dicts) into the port's state dict, `jax_from_state_dict` back.
+numpy dicts) into the port's state dict, `jax_from_state_dict` back;
+`save_torch_tar` writes such a tree as a reference `.tar`, the reverse
+of cli/convert_chkpt.py.
 Their name map restates the JAX package's `torch_name_map`, and
 `tf_name_map` its TensorFlow names for `.npz` pretrained weights; the
 JAX module cannot be imported here because it imports flax.
@@ -110,12 +112,11 @@ def _leaf(tree, path: Tuple[str, ...]):
     return node
 
 
-def state_dict_from_jax(variables, cfg: HoVerNetConfig, partial: bool = False
-                        ) -> Dict[str, torch.Tensor]:
-    """JAX {params, batch_stats} (nested dicts of numpy arrays) -> the
-    port's state dict: HWIO kernels -> OIHW, scale -> weight, mean ->
-    running_mean, var -> running_var. A variable of the model that
-    `variables` lacks raises KeyError, or with `partial` is left out."""
+def _reference_layout(variables, cfg: HoVerNetConfig, partial: bool,
+                      leaf) -> dict:
+    """{torch key: leaf(JAX leaf)} over the name map, HWIO kernels
+    transposed to OIHW; a variable that `variables` lacks raises
+    KeyError, or with `partial` is left out."""
     out = {}
     for key, path, transform in name_map(cfg):
         node = _leaf(variables, path)
@@ -123,12 +124,56 @@ def state_dict_from_jax(variables, cfg: HoVerNetConfig, partial: bool = False
             if partial:
                 continue
             raise KeyError(f"JAX variables miss {'/'.join(path)} (-> {key})")
-        v = _float32(node)
-        if transform == "OIHW":
-            v = v.transpose(3, 2, 0, 1)
-        out[key] = torch.tensor(v)
+        v = leaf(node)
+        out[key] = v.transpose(3, 2, 0, 1) if transform == "OIHW" else v
+    return out
+
+
+def state_dict_from_jax(variables, cfg: HoVerNetConfig, partial: bool = False
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX {params, batch_stats} (nested dicts of numpy arrays) -> the
+    port's state dict: HWIO kernels -> OIHW, scale -> weight, mean ->
+    running_mean, var -> running_var. A variable of the model that
+    `variables` lacks raises KeyError, or with `partial` is left out."""
+    out = {k: torch.tensor(v) for k, v in
+           _reference_layout(variables, cfg, partial, _float32).items()}
     out["upsample2x.unpool_mat"] = torch.ones(2, 2)
     return out
+
+
+def _numpy(v) -> np.ndarray:
+    """A leaf of a JAX tree as a numpy array of its own dtype (a bfloat16
+    leaf of msgpack_io, a torch tensor, as float32: numpy has no
+    bfloat16)."""
+    if isinstance(v, torch.Tensor):
+        return _float32(v)
+    return np.asarray(v)
+
+
+def export_torch_state_dict(variables, cfg: HoVerNetConfig
+                            ) -> Dict[str, np.ndarray]:
+    """The JAX package's `export_torch_state_dict`: a {params,
+    batch_stats} tree -> the reference-layout state dict as numpy arrays
+    (HWIO kernels -> OIHW, no 'module.' prefixes), with the reference
+    UpSample2x's constant `upsample2x.unpool_mat` buffer, so that the
+    reference model loads it with strict=True. Every variable of `cfg`'s
+    model must be present."""
+    out = _reference_layout(variables, cfg, False, _numpy)
+    out["upsample2x.unpool_mat"] = np.ones((2, 2), np.float32)
+    return out
+
+
+def save_torch_tar(path: str, variables, cfg: HoVerNetConfig,
+                   data_parallel_prefix: bool = True) -> None:
+    """The JAX package's `save_torch_tar`: write `variables` as a
+    reference-format `.tar`, {'desc': state_dict}, its keys prefixed with
+    DataParallel's 'module.' by default as the reference trainer writes
+    them. The reference `run_infer.py`, the JAX package's
+    `load_torch_tar` and the port's read it."""
+    state = {("module." + k if data_parallel_prefix else k):
+             torch.from_numpy(np.array(v, order="C"))
+             for k, v in export_torch_state_dict(variables, cfg).items()}
+    _atomic_write(path, lambda tmp: torch.save({"desc": state}, tmp))
 
 
 def load_torch_tar(path: str) -> Dict[str, torch.Tensor]:

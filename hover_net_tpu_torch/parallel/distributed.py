@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-import io
 import logging
 import math
 import multiprocessing
@@ -29,7 +28,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -48,12 +47,20 @@ EXIT_GRACE_S = 60.0
 @dataclasses.dataclass
 class Rank:
     """What a rank's function knows of its run: its index, the number of
-    ranks, its device and the process group."""
+    ranks, its device and the process group; `marks` is the rank's
+    timeline, which `run_ranks` logs (`mark`)."""
 
     rank: int
     world_size: int
     device: torch.device
     group: Any
+    marks: List[Tuple[str, float]] = dataclasses.field(default_factory=list)
+
+    def mark(self, what: str) -> None:
+        """Note the wall-clock time of `what` on the rank's timeline
+        (the first mark of a name counts)."""
+        if all(name != what for name, _ in self.marks):
+            self.marks.append((what, time.time()))
 
 
 def backend_for(devices: Sequence) -> str:
@@ -156,33 +163,33 @@ def module_tensors(module: torch.nn.Module) -> List[torch.Tensor]:
 
 # ------------------------------------------------------------ processes
 
-def _dumps(obj) -> bytes:
-    buf = io.BytesIO()
-    torch.save(obj, buf)
-    return buf.getvalue()
+def _result_path(tmp: str, rank: int) -> str:
+    return os.path.join(tmp, f"result_{rank}.pt")
 
 
-def _loads(data: bytes):
-    return torch.load(io.BytesIO(data), weights_only=False)
-
-
-def _rank_main(fn, rank, devices, backend, init_method, args_path, results):
+def _rank_main(fn, rank, devices, backend, init_method, tmp, results):
     """A rank's process: bind the device, join the group, run `fn` on the
-    arguments saved at `args_path`, send back ("ok", its result serialised
-    with torch.save) or ("error", the traceback)."""
+    arguments saved in `tmp`, save its result there with torch.save and
+    send back ("ok", its timeline), or send ("error", the traceback)."""
+    marks = [("up", time.time())]
     try:
-        args = torch.load(args_path, weights_only=False)
+        args = torch.load(os.path.join(tmp, "args.pt"), weights_only=False)
         torch.set_num_threads(1)
         device = devices[rank]
         if device.type == "cuda":
             torch.cuda.set_device(device)
+            torch.cuda.init()
+        marks.append(("device bound", time.time()))
         kw = {"device_id": device} if backend == "nccl" else {}
         dist.init_process_group(
             backend, init_method=init_method, rank=rank,
             world_size=len(devices),
             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S), **kw)
-        ctx = Rank(rank, len(devices), device, dist.group.WORLD)
-        results.put((rank, "ok", _dumps(fn(ctx, *args))))
+        ctx = Rank(rank, len(devices), device, dist.group.WORLD, marks)
+        ctx.mark("group joined")
+        torch.save(fn(ctx, *args), _result_path(tmp, rank))
+        ctx.mark("returned")
+        results.put((rank, "ok", marks))
     except BaseException:
         # the parent reads this, kills every rank and raises
         results.put((rank, "error", traceback.format_exc()))
@@ -237,8 +244,15 @@ def run_ranks(fn: Callable, devices: Sequence, args=(),
     `fn` must be a module-level function of this package (a rank imports
     the module that defines it). `args` reach the ranks in a file written
     with torch.save (in a process's start arguments they would hold each
-    start until the rank before had imported `fn`'s module), and the
-    results come back as bytes of torch.save.
+    start until the rank before had imported `fn`'s module), and each
+    result comes back the same way (through the queue, a result of a few
+    hundred MB, such as a trainer's RunInfo with its model and optimizer,
+    took 10-18 s to pass on an H100 host: PERF.md §6). Each rank's
+    timeline is
+    logged, in seconds from the start: its process up (the interpreter,
+    torch and `fn`'s module imported), its device bound, the group joined,
+    what `fn` marked (`Rank.mark`, e.g. its first step) and `fn` returned;
+    then the ranks' exit.
     When a rank raises or ends without a result, or `timeout_s` (None: no
     limit) passes, or a rank has not exited `EXIT_GRACE_S` after every
     result came, every rank is killed and a RuntimeError names the first
@@ -252,15 +266,16 @@ def run_ranks(fn: Callable, devices: Sequence, args=(),
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="hnt_ranks_") as tmp:
         init_method = "file://" + os.path.join(tmp, "rendezvous")
-        args_path = os.path.join(tmp, "args.pt")
-        torch.save(tuple(args), args_path)
+        torch.save(tuple(args), os.path.join(tmp, "args.pt"))
         procs = [ctx.Process(target=_rank_main, name=f"rank-{r}",
                              args=(fn, r, devices, backend, init_method,
-                                   args_path, results))
+                                   tmp, results))
                  for r in range(len(devices))]
+        t_start = time.time()
         for p in procs:
             p.start()
         out: Dict[int, Any] = {}
+        marks: Dict[int, List[Tuple[str, float]]] = {}
         failure = None
         deadline = (math.inf if timeout_s is None
                     else time.monotonic() + timeout_s)
@@ -270,7 +285,9 @@ def run_ranks(fn: Callable, devices: Sequence, args=(),
                 if isinstance(msg, str):
                     failure = msg
                 elif msg[1] == "ok":
-                    out[msg[0]] = _loads(msg[2])
+                    out[msg[0]] = torch.load(_result_path(tmp, msg[0]),
+                                             weights_only=False)
+                    marks[msg[0]] = msg[2]
                 else:
                     failure = (f"rank {msg[0]} ({devices[msg[0]]}) "
                                f"failed:\n{msg[2]}")
@@ -279,6 +296,12 @@ def run_ranks(fn: Callable, devices: Sequence, args=(),
                                     deadline - time.monotonic())))
                 if p.exitcode is None:
                     failure = f"{p.name} did not exit after its result"
+            t_exit = time.time()
+            for r in sorted(marks):
+                logger.info("run_ranks: rank %d (%s), s from the start: %s; "
+                            "all exited %.1f", r, devices[r], ", ".join(
+                                f"{what} {t - t_start:.1f}"
+                                for what, t in marks[r]), t_exit - t_start)
         finally:
             _stop(procs)
             results.close()

@@ -8,6 +8,9 @@ batches in this process. Both start from the same state dict and
 return, per case, the loss terms of every step, the gradients of the
 first step (averaged over the ranks), the state after the last step and,
 across ranks, whether every rank ended bit-identical to rank 0.
+`dryrun_and_rank_steps` runs the train-step dryrun of
+`train_parallel.dryrun_train_step` and then `rank_steps`' cases in one
+spawn of the ranks.
 tests/test_torch_train_distributed.py holds them against each other and
 against the JAX package's meshed step on the CPU, and chip_smoke.py
 phase 14 against each other on the card, both through `misses`.
@@ -57,9 +60,10 @@ def _cpu_state(net) -> Dict[str, torch.Tensor]:
 
 
 def _steps(cfg, state_dict, batches, freeze, schedule, device, group=None,
-           shard=slice(None)):
+           shard=slice(None), ctx=None):
     """Run the steps; returns ({"terms": of every step, "grads": of step 1,
-    "state": after the last}, on the CPU; the model)."""
+    "state": after the last}, on the CPU; the model). A rank's `ctx` marks
+    its first step."""
     net = HoVerNet(cfg)
     net.load_state_dict(state_dict, strict=True)
     tx, sched = tp.make_optimizer(**schedule)
@@ -73,6 +77,8 @@ def _steps(cfg, state_dict, batches, freeze, schedule, device, group=None,
                     .to(device) for k, v in batch.items()}
             state, (out, _) = step(state, part)
             run["terms"].append({k: float(v) for k, v in out.items()})
+            if ctx is not None:
+                ctx.mark("first step")
             if "grads" not in run:
                 run["grads"] = {k: p.grad.detach().cpu().clone()
                                 for k, p in net.named_parameters()
@@ -88,7 +94,7 @@ def _rank(ctx, cfg, state_dict, batches, cases, schedule):
     for freeze, mutation in cases:
         with _mutated(mutation):
             run, net = _steps(cfg, state_dict, batches, freeze, schedule,
-                              ctx.device, ctx.group, shard)
+                              ctx.device, ctx.group, shard, ctx)
         run["equal"] = distributed.replicas_equal(
             distributed.module_tensors(net), ctx.group)
         out.append(run if ctx.rank == 0 else None)
@@ -110,6 +116,29 @@ def rank_steps(devices: Sequence, cfg: HoVerNetConfig,
         _rank, devices, (cfg, state_dict, batches, list(cases), schedule),
         timeout_s=timeout_s)
     return results[0]
+
+
+def _dryrun_and_rank(ctx, cfg, state_dict, batches, cases, schedule):
+    return (tp._dryrun_rank(ctx, ctx.world_size),
+            _rank(ctx, cfg, state_dict, batches, cases, schedule))
+
+
+def dryrun_and_rank_steps(devices: Sequence, cfg: HoVerNetConfig,
+                          state_dict: Dict[str, torch.Tensor],
+                          batches: List[dict],
+                          cases: Sequence[Tuple[bool, Optional[str]]],
+                          schedule: dict, timeout_s: float = 600.0
+                          ) -> Tuple[float, List[dict]]:
+    """`train_parallel.dryrun_train_step(len(devices), devices)` and then
+    `rank_steps(devices, ...)` in one spawn of the ranks (a spawn costs
+    seconds of imports and device start-up): the dryrun's checks and
+    line, then (its loss, `rank_steps`' result)."""
+    results = distributed.run_ranks(
+        _dryrun_and_rank, devices,
+        (cfg, state_dict, batches, list(cases), schedule),
+        timeout_s=timeout_s)
+    loss = tp.check_dryrun([r[0] for r in results], len(devices))
+    return loss, results[0][1]
 
 
 def one_process_steps(device, cfg: HoVerNetConfig,

@@ -49,6 +49,16 @@ def canonical_device(device) -> torch.device:
     return dev
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA device without a GPU raises
+    (there is no fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available (pass --device cpu to run on the CPU)")
+    return dev
+
+
 def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """The first `n_devices` slots of `devices` (all of them when

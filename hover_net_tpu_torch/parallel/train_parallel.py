@@ -41,11 +41,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..infer.base import resolve_device
 from ..models.blocks import global_batch_stats
 from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..ops.losses import hovernet_loss
 from .distributed import all_reduce_sum, average_
+from .mesh import resolve_device
 
 
 @dataclasses.dataclass
@@ -227,8 +227,37 @@ def _dryrun_rank(ctx, n: int):
              .to(ctx.device) for k, v in _dryrun_batch(n).items()}
     step = make_train_step(model, schedule, group=ctx.group)
     _, (terms, _) = step(state, shard)
-    return (float(terms["overall_loss"]),
+    loss = float(terms["overall_loss"])
+    ctx.mark("first step")
+    return (loss,
             replicas_equal(module_tensors(model), ctx.group))
+
+
+def dryrun_devices(n_devices: int, devices=None) -> list:
+    """The dryrun's devices: `devices` (its first n), by default
+    cuda:0..n-1 (fewer cards raise)."""
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(n_devices)]
+        if torch.cuda.device_count() < n_devices:
+            raise ValueError(f"need {n_devices} CUDA devices, have "
+                             f"{torch.cuda.device_count()}")
+    devices = list(devices)[:n_devices]
+    if len(devices) != n_devices:
+        raise ValueError(f"need {n_devices} devices, got {devices}")
+    return devices
+
+
+def check_dryrun(results, n_devices: int) -> float:
+    """The dryrun's checks on every rank's `_dryrun_rank` result: a
+    finite loss and bit-identical replicas; prints the JAX dryrun's line
+    and returns the loss."""
+    loss = results[0][0]
+    if not np.isfinite(loss):
+        raise AssertionError("non-finite loss in dryrun")
+    if not all(r == (loss, True) for r in results):
+        raise AssertionError(f"the ranks disagree after one step: {results}")
+    print(f"dryrun_multichip ok: {n_devices} devices, loss={loss:.4f}")
+    return loss
 
 
 def dryrun_train_step(n_devices: int, devices=None) -> float:
@@ -241,20 +270,7 @@ def dryrun_train_step(n_devices: int, devices=None) -> float:
     prints the JAX dryrun's line, and returns the loss."""
     from .distributed import run_ranks
 
-    if devices is None:
-        devices = [torch.device("cuda", i) for i in range(n_devices)]
-        if torch.cuda.device_count() < n_devices:
-            raise ValueError(f"need {n_devices} CUDA devices, have "
-                             f"{torch.cuda.device_count()}")
-    devices = list(devices)[:n_devices]
-    if len(devices) != n_devices:
-        raise ValueError(f"need {n_devices} devices, got {devices}")
+    devices = dryrun_devices(n_devices, devices)
     results = run_ranks(_dryrun_rank, devices, (n_devices,),
                         timeout_s=DRYRUN_TIMEOUT_S)
-    loss = results[0][0]
-    if not np.isfinite(loss):
-        raise AssertionError("non-finite loss in dryrun")
-    if not all(r == (loss, True) for r in results):
-        raise AssertionError(f"the ranks disagree after one step: {results}")
-    print(f"dryrun_multichip ok: {n_devices} devices, loss={loss:.4f}")
-    return loss
+    return check_dryrun(results, n_devices)

@@ -41,11 +41,10 @@ import torch
 
 from ..config import TrainConfig
 from ..data.train_pipeline import PatchDataset, PrefetchLoader, TrainLoader
-from ..infer.base import resolve_device
 from ..models import checkpoints as ckpt
 from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..parallel import distributed
-from ..parallel.mesh import canonical_device
+from ..parallel.mesh import canonical_device, resolve_device
 from ..parallel.train_parallel import (
     init_train_state, make_eval_step, make_optimizer,
     make_train_step,
@@ -299,6 +298,8 @@ class TrainManager:
             )
             ema = {k: float(v) for k, v in terms.items()}
             run_info.step_s.append(time.perf_counter() - t0)
+            if self.ctx is not None:
+                self.ctx.mark("first step")
             run_info.last_grad_norm = ema.get("grad_norm")
             run_info.losses.append(ema["overall_loss"])
             # raw viz: 2 samples, pulled to the host at epoch end

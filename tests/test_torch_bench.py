@@ -134,6 +134,28 @@ def test_typed_recipe_batches_draw_types_per_instance():
     assert len(np.unique(b["tp_map"])) == 5
 
 
+@pytest.mark.parametrize("nr_types, guess", [(None, 71), (5, 71), (5, 1)],
+                         ids=["untyped", "typed", "typed-every-guess-wrong"])
+def test_pooled_recipe_batches_equal_recipe_batches(nr_types, guess):
+    """The recipe's batches drawn by worker processes are
+    `recipe_batches`' array for array; with types, also when every batch
+    drawn ahead has to be drawn again (a wrong guess of the types a
+    tile draws)."""
+    from hover_net_tpu_torch.data.synthetic import pooled_recipe_batches
+
+    gen = bench.recipe_batches(np.random.default_rng(3), 3, nr_types)
+    host_s = []
+    got = list(pooled_recipe_batches(3, 3, 4, nr_types, workers=2, ahead=3,
+                                     guess=guess, host_s=host_s))
+    assert len(got) == 4 and len(host_s) == 4
+    for g in got:
+        w = next(gen)
+        assert g.keys() == w.keys()
+        for k in w:
+            assert g[k].dtype == w[k].dtype
+            np.testing.assert_array_equal(g[k], w[k])
+
+
 def test_recipe_checkpoint_loads_in_both_packages(recipe):
     from hover_net_tpu.models import HoVerNetConfig as JaxConfig
     from hover_net_tpu.models.checkpoints import load_torch_tar as jax_load
@@ -185,14 +207,17 @@ def test_recipe_cache_key_covers_the_training_code(recipe, monkeypatch):
     one of them trains anew."""
     import sys
 
+    from hover_net_tpu_torch.data import synthetic
     from hover_net_tpu_torch.models import blocks
     from hover_net_tpu_torch.ops import losses, targets
+    from hover_net_tpu_torch.utils import crops
 
     pkg = os.path.dirname(os.path.dirname(bench.__file__))
     used = [sys.modules[f.__module__].__file__ for f in (
         bench.train_e2e_checkpoint, bench.make_train_step, HoVerNet,
         blocks.ResidualBlock, losses.hovernet_loss, targets.gen_targets,
-        bench.device_prefetch, bench.save_train_tar, bench.cropping_center)]
+        bench.device_prefetch, bench.save_train_tar, crops.cropping_center,
+        synthetic.pooled_recipe_batches)]
     assert {os.path.relpath(f, pkg) for f in used} == set(bench.RECIPE_SOURCES)
 
     kw, path = recipe

@@ -72,6 +72,10 @@ CFG64 = HoVerNetConfig(mode="fast", nr_types=NR_TYPES, width=WIDTH,
 CASES = [(True, None), (False, None), (False, "local_bn"),
          (False, "sum_grads")]
 SPAWN_S = 300.0
+# chip_smoke.py's exactness check: the heads and the loss in float64 too
+CFG64_HEADS = HoVerNetConfig(mode="fast", nr_types=NR_TYPES, width=WIDTH,
+                             dtype=torch.float64, head_dtype=torch.float64)
+HEADS_CASES = [(True, None), (False, None)]
 
 
 def global_batches(n=GLOBAL, steps=N_STEPS, seed=0):
@@ -187,16 +191,13 @@ def runs_float64_heads():
     """Both freeze modes on 2 ranks and in one process with the heads and
     the loss in float64 too, the configuration of chip_smoke.py's
     exactness check."""
-    cfg = HoVerNetConfig(mode="fast", nr_types=NR_TYPES, width=WIDTH,
-                         dtype=torch.float64, head_dtype=torch.float64)
     start = HoVerNet(CFG, generator=torch.Generator().manual_seed(5)
                      ).state_dict()
     data = global_batches(seed=5)
-    cases = [(True, None), (False, None)]
-    ranks = dp_check.rank_steps(["cpu"] * RANKS, cfg, start, data, cases,
-                                SCHEDULE, timeout_s=SPAWN_S)
-    one = [dp_check.one_process_steps("cpu", cfg, start, data, f, SCHEDULE)
-           for f, _ in cases]
+    ranks = dp_check.rank_steps(["cpu"] * RANKS, CFG64_HEADS, start, data,
+                                HEADS_CASES, SCHEDULE, timeout_s=SPAWN_S)
+    one = [dp_check.one_process_steps("cpu", CFG64_HEADS, start, data, f,
+                                      SCHEDULE) for f, _ in HEADS_CASES]
     return start, dict(zip((True, False), zip(ranks, one)))
 
 
@@ -210,6 +211,30 @@ def test_two_ranks_match_one_process_with_float64_heads(runs_float64_heads,
         want["terms"][0]["overall_loss"], rel=1e-12)
     worst = misses(got, want, freeze, start)
     assert max(worst.values()) <= 1.0, worst
+
+
+def test_dryrun_and_rank_steps_equal_the_two_spawns(runs_float64_heads,
+                                                    capsys):
+    """chip_smoke.py phase 14 (b) and (c) in one spawn of the ranks
+    (`dp_check.dryrun_and_rank_steps`) give what the two spawns they
+    replace give, bit for bit: `dryrun_train_step`'s loss and line, and
+    `rank_steps`' runs of both freeze modes."""
+    start, runs = runs_float64_heads
+    loss, got = dp_check.dryrun_and_rank_steps(
+        ["cpu"] * RANKS, CFG64_HEADS, start, global_batches(seed=5),
+        HEADS_CASES, SCHEDULE, timeout_s=SPAWN_S)
+    assert loss == t_tp.dryrun_train_step(RANKS, ["cpu"] * RANKS)
+    line = f"dryrun_multichip ok: {RANKS} devices, loss={loss:.4f}"
+    assert capsys.readouterr().out.count(line) == 2
+    assert len(got) == len(HEADS_CASES)
+    for (freeze, _), run in zip(HEADS_CASES, got):
+        want = runs[freeze][0]
+        assert run["equal"] and want["equal"]
+        assert run["terms"] == want["terms"]
+        for part in ("grads", "state"):
+            assert list(run[part]) == list(want[part])
+            for k, v in want[part].items():
+                assert torch.equal(run[part][k], v), (part, k)
 
 
 def test_four_ranks_one_step():
