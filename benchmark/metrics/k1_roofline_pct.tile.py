@@ -1,0 +1,12 @@
+"""K1's share of its roofline on the tile path, %: the least time its bytes
+need (9 B a pixel of each tile's canonical canvas at 3.35 TB/s) over the
+device time of K1's kernels in the traced stretch."""
+
+from benchmark.roofline import k1_floor_s, k1_seconds
+
+
+def read(facts):
+    k1_s = k1_seconds(facts["trace"]["device_by_name"])
+    if k1_s <= 0 or not facts["tiles"]:
+        return None
+    return 100.0 * k1_floor_s(facts["k1_pixels_per_tile"] * facts["tiles"]) / k1_s
