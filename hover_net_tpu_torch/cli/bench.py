@@ -32,7 +32,8 @@ readouts:
 - `e2e_multi_image`: 5 distinct tiles read and png-decoded inside the
   timed loop, median of 3 reps;
 - device ms per tile: the sum of the tile pipeline's CUDA-event stages
-  (`run.stage_ms()`), the median over warm tiles, each stage named; the
+  (`steps.STAGES` of a `steps.StageEvents`), the median over warm tiles,
+  each stage and the forward's encoder and decoders parts named; the
   forward's FLOPs from `torch.utils.flop_counter.FlopCounterMode` and the
   pipeline's MFU against the H100's 989 TFLOP/s dense bf16 peak;
 - `proxy_1kx1k_tiles_per_sec`: bench.py's first headline (patch gather,
@@ -79,7 +80,13 @@ from ..data.synthetic import (
 from ..data.tiling import bucket_grid_dim, prepare_tile_patching
 from ..data.train_pipeline import device_prefetch
 from ..infer.base import resolve_device
-from ..infer.steps import assemble_grid, extract_patches, infer_output
+from ..infer.steps import (
+    STAGES,
+    StageEvents,
+    assemble_grid,
+    extract_patches,
+    infer_output,
+)
 from ..models.checkpoints import load_torch_tar, save_train_tar
 from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..ops.nvcc_build import BUILD_DIR
@@ -443,10 +450,10 @@ def canonical_grid(size: int, win: int, step: int):
 
 def bench_device_time(mgr, size=1000, tiles=DEVICE_TILES, warm=2):
     """Device ms per tile of the tile pipeline: for each of `tiles` warm
-    tiles the sum of `run.stage_ms()` (CUDA events between its stages,
-    read after the tile's last event), the median of those sums, and
-    each stage's median. None on a CPU (no events). Also the forward's
-    FLOPs per tile (FlopCounterMode)."""
+    tiles the sum of its `STAGES` (CUDA events between its stages, read
+    after the tile's last event), the median of those sums, and each
+    stage's and forward part's median. None on a CPU (no events). Also
+    the forward's FLOPs per tile (FlopCounterMode)."""
     coords, grid, canvas = canonical_grid(size, mgr.patch_input_shape,
                                           mgr.patch_output_shape)
     img, _ = synth_nuclei_image(canvas, canvas, seed=7)
@@ -456,8 +463,9 @@ def bench_device_time(mgr, size=1000, tiles=DEVICE_TILES, warm=2):
     coords_d = torch.from_numpy(coords).to(dev)
     runs = []
     for i in range(warm + tiles):
-        run(img_d, coords_d, (size, size))
-        ms = run.stage_ms()  # waits for the tile's last stage event
+        events = StageEvents(dev)
+        run(img_d, coords_d, (size, size), events)
+        ms = events.ms()  # waits for the tile's last stage event
         if i >= warm:
             runs.append(ms)
     flops, _ = forward_flops(mgr.model, len(coords))
@@ -465,8 +473,8 @@ def bench_device_time(mgr, size=1000, tiles=DEVICE_TILES, warm=2):
         return {"device_ms_per_tile": None, "stage_ms": None,
                 "forward_flops_per_tile": flops}
     stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    return {"device_ms_per_tile": statistics.median(sum(r.values())
-                                                    for r in runs),
+    return {"device_ms_per_tile": statistics.median(
+                sum(r[k] for k in STAGES) for r in runs),
             "stage_ms": stages, "forward_flops_per_tile": flops}
 
 
@@ -560,12 +568,12 @@ def bench_typed_tile(device, width=64, size=1000, tiles=3, work_dir=None):
         walls, stages, counts = [], [], []
         for i in range(tiles + 1):
             t0 = time.perf_counter()
-            dev_out, stage_ms = mgr.predict_image_async(img)
+            dev_out, events = mgr.predict_image_async(img)
             counts.append(_finalize_to_json(mgr, img, out_dir, f"t{i}",
                                             dev_out))
             if i:
                 walls.append((time.perf_counter() - t0) * 1e3)
-                stages.append(stage_ms)
+                stages.append(events.ms())
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"wall_ms": statistics.median(walls), "n_instances": counts[-1],

@@ -27,6 +27,7 @@ from ..models.checkpoints import load_model_state
 from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..ops.instance_table import emit_nuc_json
 from ..parallel.mesh import canonical_device, resolve_device
+from ..runtime import span
 from .steps import forward_batches
 
 logger = logging.getLogger("hover_net_tpu_torch")
@@ -78,6 +79,11 @@ def load_type_info(path: Optional[str], nr_types: Optional[int]):
 
 
 class InferManagerBase:
+    # host seconds of the model's construction, checkpoint load and push
+    # (span `hnt.model.build`); the WSI manager reports it with its first
+    # slide and then sets it to None
+    _build_s = None
+
     def __init__(self, model_path: str, mode: str = "fast",
                  nr_types: Optional[int] = None,
                  type_info_path: Optional[str] = None, width: int = 64,
@@ -97,10 +103,13 @@ class InferManagerBase:
         self.device = self.devices[0]
         self.cfg = HoVerNetConfig(mode=mode, nr_types=nr_types, width=width,
                                   dtype=dtype)
-        self.model = HoVerNet(self.cfg)
-        self.model.load_state_dict(load_model_state(model_path, self.cfg),
-                                   strict=True)
-        self.model.to(self.device).eval()
+        build: Dict[str, float] = {}
+        with span("hnt.model.build", build, "model_build"):
+            self.model = HoVerNet(self.cfg)
+            self.model.load_state_dict(load_model_state(model_path, self.cfg),
+                                       strict=True)
+            self.model.to(self.device).eval()
+        self._build_s = build["model_build"]
         self._replicas: Dict[torch.device, HoVerNet] = {}
         self.nr_types = nr_types
         self.batch_size = batch_size

@@ -9,16 +9,21 @@ encoder as the fused-block CUDA kernel K3 behind `_use_fused_enc`.
 padded image -> patch gather -> forward -> stitch -> reflect-101 mirror
 about the source with its valid mask -> post-processing (the CUDA tail
 kernel on a GPU) -> uint16 label compaction -> per-instance tables.
+
+`StageEvents` holds one pipeline call's CUDA events: the caller makes
+one a call and reads it (`ms()`) after the call's outputs have reached
+the host, so that timing a call never waits on the device.
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..models.encoder_fused import fused_forward
+from ..models.encoder_fused import fused_encode
 from ..models.hovernet import HoVerNet
 from ..ops.post_proc_cuda import proc_tail
 from ..ops.post_proc_device import (
@@ -39,14 +44,79 @@ def _use_fused_enc(model: HoVerNet, device) -> bool:
             and torch.device(device).type == "cuda")
 
 
+# the tile pipeline's stages, in order: each one's device ms runs from
+# the end of the one before (the first from the call's start)
+STAGES = ("forward", "energy", "post_proc_tail", "tables")
+
+
+class StageEvents:
+    """The CUDA events of one tile pipeline call (none on another device).
+
+    `stage(name)` closes a stage of `STAGES`; `part(name, start, end)`
+    adds an interval inside one (the forward's `encoder` and `decoders`,
+    summed over its sub-batches). `ms()` waits for the last event and
+    gives each stage's and each part's device ms."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.on = self.device.type == "cuda"
+        self.stages = []  # (name, event), the call's start first
+        self.parts = []  # (name, start event, end event)
+
+    def record(self):
+        """A timing event recorded now on the device's current stream, or
+        None off CUDA."""
+        if not self.on:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def stage(self, name: str) -> None:
+        if self.on:
+            self.stages.append((name, self.record()))
+
+    def part(self, name: str, start, end) -> None:
+        if self.on:
+            self.parts.append((name, start, end))
+
+    def ms(self) -> Dict[str, float]:
+        if not self.stages:
+            return {}
+        self.stages[-1][1].synchronize()
+        out = {name: prev.elapsed_time(ev) for (_, prev), (name, ev)
+               in zip(self.stages, self.stages[1:])}
+        for name, start, end in self.parts:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
+
+
+# the StageEvents of the `forward_batches` call running in this thread
+# (a context variable: threads and calls never share it), to which
+# `infer_output` adds its encoder's and decoders' device time; the
+# function keeps its (model, imgs) signature for every caller
+_forward_events: contextvars.ContextVar[Optional[StageEvents]] = \
+    contextvars.ContextVar("hnt_forward_events", default=None)
+
+
 def infer_output(model: HoVerNet, imgs: torch.Tensor) -> torch.Tensor:
     """NHWC images [N, H, W, 3] (uint8 or float, 0..255) -> NHWC float32
     [N, h, w, C] head activations. Behind `_use_fused_enc` the encoder
-    runs as kernel K3."""
+    runs as kernel K3. Inside `forward_batches(..., events=)` the
+    encoder's and the decoders' device time are added to the events'
+    parts `encoder` and `decoders`."""
+    events = _forward_events.get()
+    start = events.record() if events is not None else None
     if _use_fused_enc(model, imgs.device):
-        out = fused_forward(model, imgs)
+        feats = fused_encode(model, imgs)
     else:
-        out = model(imgs.permute(0, 3, 1, 2))
+        feats = model.encode(imgs.permute(0, 3, 1, 2))
+    mid = events.record() if events is not None else None
+    out = model.decode(feats)
+    if events is not None:
+        end = events.record()
+        events.part("encoder", start, mid)
+        events.part("decoders", mid, end)
     parts = []
     if "tp" in out:
         tp = torch.argmax(torch.softmax(out["tp"], dim=1), dim=1)
@@ -103,18 +173,24 @@ def tables_tail(full: torch.Tensor, inst_batch: torch.Tensor,
 
 
 def forward_batches(model: HoVerNet, patches: torch.Tensor,
-                    batch: int = 0) -> torch.Tensor:
+                    batch: int = 0,
+                    events: Optional[StageEvents] = None) -> torch.Tensor:
     """`infer_output` over [K, H, W, 3] patches. batch > 0 splits the
     forward into balanced sub-batches of at most `batch` patches when K
     is more than twice that (80 patches at batch 32: 27 + 27 + 26, not
-    32 + 32 + 16); otherwise one call takes all K."""
-    k = patches.shape[0]
-    if batch and 2 * batch < k:
-        nb = -(-k // batch)
-        eff = -(-k // nb)
-        return torch.cat([infer_output(model, patches[i:i + eff])
-                          for i in range(0, k, eff)])
-    return infer_output(model, patches)
+    32 + 32 + 16); otherwise one call takes all K. `events` receives the
+    sub-batches' `encoder` and `decoders` parts."""
+    token = _forward_events.set(events)
+    try:
+        k = patches.shape[0]
+        if batch and 2 * batch < k:
+            nb = -(-k // batch)
+            eff = -(-k // nb)
+            return torch.cat([infer_output(model, patches[i:i + eff])
+                              for i in range(0, k, eff)])
+        return infer_output(model, patches)
+    finally:
+        _forward_events.reset(token)
 
 
 def assemble_grid(patch_out: torch.Tensor,
@@ -132,55 +208,41 @@ def assemble_grid(patch_out: torch.Tensor,
 
 def make_tile_pipeline(model: HoVerNet, grid: Tuple[int, int],
                        batch: int = 0):
-    """(padded_img [H, W, 3], coords [K, 2], src_hw) -> (full, inst [H, W]
-    uint16, n_labels [1], tp_map, tables) at canonical canvas size.
+    """(padded_img [H, W, 3], coords [K, 2], src_hw, events=None) ->
+    (full, inst [H, W] uint16, n_labels [1], tp_map, tables) at canonical
+    size.
 
     batch > 0 runs the forward in balanced sub-batches of at most `batch`
     patches when the grid holds more than twice that many.
 
-    On a CUDA device the returned function records CUDA events between
-    its stages; `run.stage_ms()` gives the last call's device time per
-    stage (forward, energy, post_proc_tail, tables) in ms."""
+    `events`, a `StageEvents` of the call's device, receives CUDA events
+    at the ends of its `STAGES` (forward: gather to stitch; energy;
+    post_proc_tail; tables) and the forward's `encoder` and `decoders`
+    parts; the call itself never waits for them."""
     win = model.cfg.patch_input_shape
     nr_types = model.cfg.nr_types
 
-    def forward_stitch(padded_img, coords):
+    def forward_stitch(padded_img, coords, events=None):
         patches = extract_patches(padded_img, coords, win)
-        return assemble_grid(forward_batches(model, patches, batch), grid)
-
-    marks = []
-
-    def mark(device, name):
-        if device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record(torch.cuda.current_stream(device))
-            marks.append((name, ev))
+        return assemble_grid(forward_batches(model, patches, batch, events),
+                             grid)
 
     @torch.no_grad()
     def run(padded_img: torch.Tensor, coords: torch.Tensor,
-            src_hw: Tuple[int, int]):
-        dev = padded_img.device
-        marks.clear()
-        mark(dev, "start")
-        full = forward_stitch(padded_img, coords)
-        mark(dev, "forward")
+            src_hw: Tuple[int, int], events: Optional[StageEvents] = None):
+        mark = events.stage if events is not None else lambda name: None
+        mark("start")
+        full = forward_stitch(padded_img, coords, events)
+        mark("forward")
         full, valid = reflect_canvas(full, src_hw)
         seg = full[..., 1:4] if nr_types is not None else full[..., 0:3]
         blb, sob = energy_inputs(seg[None], valid[None])
-        mark(dev, "energy")
+        mark("energy")
         inst_b = proc_tail(blb, sob)
-        mark(dev, "post_proc_tail")
+        mark("post_proc_tail")
         inst, n_labels, tp_map, tables = tables_tail(full, inst_b, nr_types)
-        mark(dev, "tables")
+        mark("tables")
         return full, inst[0], n_labels, tp_map, tables
 
-    def stage_ms() -> Dict[str, float]:
-        if not marks:
-            return {}
-        marks[-1][1].synchronize()
-        return {name: prev.elapsed_time(ev)
-                for (_, prev), (name, ev) in zip(marks, marks[1:])}
-
-    run.stage_ms = stage_ms
     run.forward_stitch = forward_stitch
     return run

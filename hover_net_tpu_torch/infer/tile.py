@@ -16,13 +16,18 @@ manager's round-robin does: each image's whole pipeline (forward,
 energy, K1, tables) runs on its slot's device with that device's model
 replica, up to 3 images a slot wait for their finalize, and the
 finalizes stay in input order. Each slot has its own dispatch thread:
-K1 reads host flags and the stage timings wait for the image's last
-event, so one dispatching thread would run the images of distinct GPUs
-one after another; with a thread a slot they overlap, and slots that
-share a device interleave their work on its stream. With one slot the
-main thread dispatches. torch.profiler records the CPU ops of the
-thread that starts it, so a `--profile_dir` trace of several slots
-lacks the dispatch threads' CPU ops (the kernels are in it).
+K1 reads host flags every few watershed sweeps and the tables size
+their boundary list on the host (`torch.nonzero`), so a dispatch
+returns only once the image's forward, K1 and most of its tables have
+run on the device, and one dispatching thread would run the images of
+distinct GPUs one after another; with a thread a slot they overlap, and slots that share a
+device interleave their work on its stream. With one slot the main
+thread dispatches. The stage timings do not hold the dispatch: each
+call's CUDA events travel with its outputs (`steps.StageEvents`) and
+the finalize worker reads them once it has pulled the tables.
+torch.profiler records the CPU ops of the thread that starts it, so a
+`--profile_dir` trace of several slots lacks the dispatch threads' CPU
+ops and their `hnt.tile.dispatch` spans (the kernels are in it).
 
 `device_post_proc=False` (the CLI's `--host_post_proc`) selects the host
 branch: the forward runs on the manager's first device, the stitched
@@ -57,10 +62,16 @@ from ..ops.post_proc_host import (
     instance_info_from_tables,
     process as host_process,
 )
+from ..runtime import span
 from ..utils.qupath import to_qupath
 from ..utils.viz import overlay_instances
 from . import base
-from .steps import assemble_grid, extract_patches, make_tile_pipeline
+from .steps import (
+    StageEvents,
+    assemble_grid,
+    extract_patches,
+    make_tile_pipeline,
+)
 
 logger = logging.getLogger("hover_net_tpu_torch")
 
@@ -75,11 +86,16 @@ class TileInferManager(base.InferManagerBase):
     """Tile-mode inference (patches 270/80 original, 256/164 fast).
 
     `timings` collects one dict per image written: on the device branch
-    the device ms of each pipeline stage (CUDA only), the host finalize
-    ms, and `from_tables`, whether the json came from the device tables
-    through the native contour tracer (False: the dense-map fallback
-    ran); on the host branch (`device_post_proc=False`) the host
-    post-processing ms."""
+    the device ms of each pipeline stage (`steps.STAGES`) and of the
+    forward's `encoder` and `decoders` (CUDA only), the host ms of the
+    image's read (`read_ms`, span `hnt.tile.read`), of its dispatch
+    (`dispatch_ms`, span `hnt.tile.dispatch`: pad, push, launches and
+    the waits for the device of K1 and the tables) and of its finalize
+    (`finalize_ms`), and
+    `from_tables`, whether the json came from the device tables through
+    the native contour tracer (False: the dense-map fallback ran); on
+    the host branch (`device_post_proc=False`) the host post-processing
+    ms."""
 
     def __init__(self, *args, device_post_proc: bool = True, **kwargs):
         super().__init__(*args, **kwargs)
@@ -91,8 +107,7 @@ class TileInferManager(base.InferManagerBase):
         self.timings = []
 
     def _pipeline_for(self, grid, slot: int):
-        """One pipeline per canonical grid class and slot (a pipeline keeps
-        its last call's stage events, so two threads never share one)."""
+        """One pipeline per canonical grid class and slot."""
         if (grid, slot) not in self._pipelines:
             self._pipelines[grid, slot] = make_tile_pipeline(
                 self.model_on(self.devices[slot]), grid,
@@ -114,11 +129,18 @@ class TileInferManager(base.InferManagerBase):
         self._rr += 1
         return slot
 
-    def predict_image_async(self, img: np.ndarray, slot=None):
+    def predict_image_async(self, img: np.ndarray, slot=None,
+                            times=None):
         """Run one RGB uint8 image through the device pipeline of `slot`
         (default: the next slot in turn). Returns (full, inst, n_labels,
-        tp, tables) tensors at canonical size and the device ms of each
-        stage."""
+        tp, tables) tensors at canonical size and the call's
+        `steps.StageEvents` (`.ms()`: the device ms of each stage, read
+        once the tables are on the host). The host seconds of the call
+        are added into `times["dispatch"]` when `times` is given."""
+        with span("hnt.tile.dispatch", times, "dispatch"):
+            return self._dispatch(img, slot)
+
+    def _dispatch(self, img: np.ndarray, slot):
         src_h, src_w = img.shape[:2]
         win, step = self.patch_input_shape, self.patch_output_shape
         padded, coords, grid = self._reflect_padded(img)
@@ -144,10 +166,11 @@ class TileInferManager(base.InferManagerBase):
             slot = self.next_slot()
         device = self.devices[slot]
         run = self._pipeline_for((rows, cols), slot)
+        events = StageEvents(device)
         out = run(torch.from_numpy(np.ascontiguousarray(padded)).to(device),
                   torch.from_numpy(coords.astype(np.int64)).to(device),
-                  (src_h, src_w))
-        return out, run.stage_ms()
+                  (src_h, src_w), events)
+        return out, events
 
     def finalize_prediction(self, img, dev_out, pull_pred_map: bool = True,
                             pull_inst_map: bool = True):
@@ -274,10 +297,10 @@ class TileInferManager(base.InferManagerBase):
 
         n_failed = 0  # touched by the main thread and the one worker
 
-        def finalize_one(name, img, dispatched, t0):
+        def finalize_one(name, img, dispatched, t0, times):
             nonlocal n_failed
             try:
-                dev_out, stage_ms = dispatched.result()
+                dev_out, events = dispatched.result()
                 t1 = time.perf_counter()
                 pred_map, inst_map, inst_info = self.finalize_prediction(
                     img, dev_out, pull_pred_map=save_raw_map,
@@ -287,7 +310,9 @@ class TileInferManager(base.InferManagerBase):
                                    save_raw_map, save_format)
                 t2 = time.perf_counter()
                 self.timings.append(dict(
-                    stage_ms, name=name, n_nuclei=len(inst_info),
+                    events.ms(), name=name, n_nuclei=len(inst_info),
+                    read_ms=times["read"] * 1e3,
+                    dispatch_ms=times["dispatch"] * 1e3,
                     finalize_ms=(t2 - t1) * 1e3,
                     from_tables=self.last_from_tables))
                 logger.info("done %s (%d nuclei, %.2fs)", name,
@@ -309,9 +334,11 @@ class TileInferManager(base.InferManagerBase):
                 if path is not None:
                     name = pathlib.Path(path).stem
                     t0 = time.perf_counter()
+                    times = {}  # host seconds: read, dispatch
                     try:
-                        img = cv2.cvtColor(cv2.imread(path),
-                                           cv2.COLOR_BGR2RGB)
+                        with span("hnt.tile.read", times, "read"):
+                            img = cv2.cvtColor(cv2.imread(path),
+                                               cv2.COLOR_BGR2RGB)
                         if not self.device_post_proc:
                             pred_map, inst_map, inst_info = \
                                 self.predict_image(img)
@@ -329,13 +356,13 @@ class TileInferManager(base.InferManagerBase):
                         slot = self.next_slot()
                         if dispatch:
                             dispatched = dispatch[slot].submit(
-                                self.predict_image_async, img, slot)
+                                self.predict_image_async, img, slot, times)
                         else:
                             dispatched = Future()
                             dispatched.set_result(
-                                self.predict_image_async(img, slot))
+                                self.predict_image_async(img, slot, times))
                         futs.append(fin.submit(finalize_one, name, img,
-                                               dispatched, t0))
+                                               dispatched, t0, times))
                     except Exception:
                         n_failed += 1
                         logger.exception("crash on %s", name)

@@ -99,6 +99,7 @@ from ..parallel.mesh import (
     shard_batch,
     shard_bounds,
 )
+from ..runtime import span
 from . import base
 from .steps import extract_patches, infer_output
 from .wsi_handler import get_file_handler
@@ -167,6 +168,13 @@ def _to_host_async(t: torch.Tensor):
     return host, ev
 
 
+def _timing_event(device: torch.device):
+    """A timing CUDA event recorded now on `device`'s current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
 def _host(pulled) -> np.ndarray:
     host, ev = pulled
     if ev is not None:
@@ -186,6 +194,7 @@ class WSIInferManager(base.InferManagerBase):
     mesh = None
     _stripe = None
     _mask_integral = None
+    _slide_times = None
     _pred_dev_mode = False
     _pred_dev = None
     n_forward_batches = 0
@@ -216,8 +225,12 @@ class WSIInferManager(base.InferManagerBase):
         self._pred_dev = None
         self._pred_dev_mode = False
         self._mask_integral = None
-        # per slide: seconds of inference, of each post-proc phase, of
-        # the json; and the forward and window batches of the last slide
+        # per slide (`process_single_file`): host seconds of `prepare`,
+        # `inference` (of it `chunk_wait`), each `post_proc_phase{k}`
+        # (of them `pp_extract` and `pp_callback`), `post_proc`, `save`,
+        # and on the manager's first slide `model_build`; the device ms of
+        # the chunk loop's forward batches (`forward_ms`, CUDA only). And
+        # the forward and window batches of the last slide
         self.mesh = (make_mesh(devices=self.devices)
                      if len(self.devices) > 1 else None)
         self.timings: Dict[str, Dict[str, float]] = {}
@@ -240,7 +253,7 @@ class WSIInferManager(base.InferManagerBase):
             return infer_output(self.model_on(device), patches).to(out_dtype)
 
     def _run_chunk(self, chunk_img, patch_coords: np.ndarray,
-                   out_coords: np.ndarray | None = None):
+                   out_coords: np.ndarray | None = None, events=None):
         """Forward all selected patches of one chunk in batches.
 
         patch_coords: [K, 2] input top-lefts relative to the chunk. Under
@@ -249,7 +262,9 @@ class WSIInferManager(base.InferManagerBase):
         (host tensor, event) pulls started here, one a shard in order,
         which the writer thread completes. Device-resident mode
         (out_coords given): the outputs scatter into the device pred
-        buffer instead, and nothing crosses to the host."""
+        buffer instead, and nothing crosses to the host. `events`, a
+        list, receives a (start, end) pair of CUDA events around each
+        forward shard on a CUDA device."""
         bs = self.batch_size
         slots = self._slots()
         imgs = self._push_chunk(chunk_img)
@@ -264,8 +279,13 @@ class WSIInferManager(base.InferManagerBase):
                     min(len(patch_coords) - i, bs * len(slots)), slots, bs)):
                 if lo == hi:
                     break
+                timed = events is not None and dev.type == "cuda"
+                if timed:
+                    start = _timing_event(dev)
                 shards.append(self._forward_batch(
                     imgs[dev], coords[dev][i + lo:i + hi], dev))
+                if timed:
+                    events.append((start, _timing_event(dev)))
                 self.n_forward_batches += 1
             if out_coords is None:
                 outs += [_to_host_async(o) for o in shards]
@@ -431,7 +451,13 @@ class WSIInferManager(base.InferManagerBase):
     def _get_raw_prediction(self, chunk_info, patch_info):
         """Chunk loop: read region -> device forward -> the writer thread
         assembles the pred map mmap; in device-resident mode the outputs
-        scatter into the device buffer instead."""
+        scatter into the device buffer instead. Into the slide's timings:
+        the main thread's wait for the prefetch thread's chunks
+        (`chunk_wait`, span `hnt.wsi.chunk_wait`) and the forward
+        batches' device ms (`forward_ms`, read once the loop has
+        synchronised)."""
+        times = self._slide_times
+        fwd_events = []
         write_q: "queue.Queue" = queue.Queue(maxsize=4)
 
         def writer():
@@ -474,18 +500,20 @@ class WSIInferManager(base.InferManagerBase):
                 futs = deque(ex.submit(read_chunk, i)
                              for i in range(min(2, n_chunks)))
                 for idx in range(n_chunks):
-                    item = futs.popleft().result()
+                    with span("hnt.wsi.chunk_wait", times, "chunk_wait"):
+                        item = futs.popleft().result()
                     if idx + 2 < n_chunks:
                         futs.append(ex.submit(read_chunk, idx + 2))
                     if item is None:
                         continue
                     tl, chunk_img, rel_in_tl, out_coords = item
                     if self._pred_dev_mode:
-                        self._run_chunk(chunk_img, rel_in_tl, out_coords)
+                        self._run_chunk(chunk_img, rel_in_tl, out_coords,
+                                        events=fwd_events)
                     else:
-                        write_q.put((tl, self._run_chunk(chunk_img,
-                                                         rel_in_tl),
-                                     out_coords))
+                        write_q.put((tl, self._run_chunk(
+                            chunk_img, rel_in_tl, events=fwd_events),
+                            out_coords))
                     logger.info("chunk %d/%d: %d patches", idx + 1,
                                 n_chunks, rel_in_tl.shape[0])
         finally:
@@ -496,18 +524,24 @@ class WSIInferManager(base.InferManagerBase):
                         else (self.device,)):
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
+        if fwd_events and times is not None:
+            # done: synchronised above, or pulled by the writer thread
+            times["forward_ms"] = sum(start.elapsed_time(end)
+                                      for start, end in fwd_events)
 
     def _boxes_touch_tissue(self, scaled_boxes):
         """Tissue-overlap test of many boxes through a summed-area table
-        of the mask (one cumsum per slide, four lookups per box)."""
+        of the mask (one cumsum per mask, four lookups per box). The
+        table is kept for the mask object it was built from: a new slide's
+        mask builds its own, whatever its shape."""
         mh, mw = self.wsi_mask.shape[:2]
         if self._mask_integral is None or \
-                self._mask_integral.shape != (mh + 1, mw + 1):
+                self._mask_integral[0] is not self.wsi_mask:
             ii = np.zeros((mh + 1, mw + 1), np.int64)
             np.cumsum((self.wsi_mask > 0).cumsum(axis=0), axis=1,
                       out=ii[1:, 1:])
-            self._mask_integral = ii
-        ii = self._mask_integral
+            self._mask_integral = (self.wsi_mask, ii)
+        ii = self._mask_integral[1]
         r0 = np.clip(scaled_boxes[:, 0, 0], 0, mh)
         r1 = np.clip(scaled_boxes[:, 1, 0], 0, mh)
         c0 = np.clip(scaled_boxes[:, 0, 1], 0, mw)
@@ -575,8 +609,14 @@ class WSIInferManager(base.InferManagerBase):
         post-processing its consecutive shard), with `inflight` batches
         queued ahead of the host. The extraction of instances runs on a
         pool; the callbacks run in order, one batch at a time. Returns
-        the number of window batches and the seconds taken."""
+        the number of window batches and the seconds taken. The main
+        thread's seconds in the extraction (with the label pulls before
+        it; span `hnt.wsi.pp.extract`) and in the callbacks (span
+        `hnt.wsi.pp.callback`) are added into the slide's `pp_extract`
+        and `pp_callback`; each batch's dispatch is span
+        `hnt.wsi.pp.dispatch`."""
         start = time.perf_counter()
+        times = self._slide_times
         per_slot = batch
         if self.mesh is not None:
             batch *= len(self.mesh)
@@ -600,28 +640,30 @@ class WSIInferManager(base.InferManagerBase):
 
         def finalize(item):
             idxs, inst_pulls, nlabs, geoms, tps, tp_pulls = item
-            _warn_u16_overflow(nlabs)
-            inst_host = _host_cat(inst_pulls)
-            if tp_pulls is not None:
-                tp_host = _host_cat(tp_pulls)
-                tps = [tp_host[k, g[0]:g[1], g[2]:g[3]].astype(np.int32)
-                       for k, g in enumerate(geoms)]
+            with span("hnt.wsi.pp.extract", times, "pp_extract"):
+                _warn_u16_overflow(nlabs)
+                inst_host = _host_cat(inst_pulls)
+                if tp_pulls is not None:
+                    tp_host = _host_cat(tp_pulls)
+                    tps = [tp_host[k, g[0]:g[1], g[2]:g[3]].astype(np.int32)
+                           for k, g in enumerate(geoms)]
 
-            def extract_one(k):
-                y0, y1, x0, x1 = geoms[k]
-                inst = remap_label(
-                    inst_host[k, y0:y1, x0:x1].astype(np.int32))
-                return extract_instance_info(inst, tps[k])
+                def extract_one(k):
+                    y0, y1, x0, x1 = geoms[k]
+                    inst = remap_label(
+                        inst_host[k, y0:y1, x0:x1].astype(np.int32))
+                    return extract_instance_info(inst, tps[k])
 
-            if ext_pool is not None and len(idxs) > 1:
-                extracted = list(ext_pool.map(extract_one,
-                                              range(len(idxs))))
-            else:
-                extracted = [extract_one(k) for k in range(len(idxs))]
-            for k, idx in enumerate(idxs):
-                inst, inst_info = extracted[k]
-                tl, br = boxes[idx]
-                callback(inst, inst_info, tl, br)
+                if ext_pool is not None and len(idxs) > 1:
+                    extracted = list(ext_pool.map(extract_one,
+                                                  range(len(idxs))))
+                else:
+                    extracted = [extract_one(k) for k in range(len(idxs))]
+            with span("hnt.wsi.pp.callback", times, "pp_callback"):
+                for k, idx in enumerate(idxs):
+                    inst, inst_info = extracted[k]
+                    tl, br = boxes[idx]
+                    callback(inst, inst_info, tl, br)
 
         def stage_mmap(sub):
             """Host side of one mmap batch on the staging thread: window
@@ -687,7 +729,8 @@ class WSIInferManager(base.InferManagerBase):
                         if i + 2 < len(batches):
                             futs.append(
                                 ex.submit(stage_mmap, batches[i + 2][1]))
-                    pending.append(dispatch(shape, sub, staged))
+                    with span("hnt.wsi.pp.dispatch"):
+                        pending.append(dispatch(shape, sub, staged))
                     while len(pending) > inflight:
                         finalize(pending.pop(0))
             while pending:
@@ -726,7 +769,11 @@ class WSIInferManager(base.InferManagerBase):
         ext = pathlib.Path(wsi_path).suffix
         os.makedirs(self.cache_path, exist_ok=True)
         times: Dict[str, float] = {}
+        if self._build_s is not None:  # the manager's first slide
+            times["model_build"] = self._build_s
+            self._build_s = None
         self.timings[wsi_name] = times
+        self._slide_times = times
 
         start = time.perf_counter()
         self.wsi_handler = get_file_handler(wsi_path, backend=ext)

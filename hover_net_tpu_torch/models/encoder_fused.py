@@ -11,8 +11,8 @@ weights as the JAX `pack_block` does; `fused_encoder_feats` and
   (the CUDA kernel for CUDA tensors, its plain version for CPU tensors);
 - d3 stays the standard module; `conv_bot` is a 1x1 product accumulated
   in f32 and rounded to bf16;
-- the decoders are the model's own `DecoderBranch`es, fed NCHW views of
-  the channels-last features.
+- the decoders are the model's own `DecoderBranch`es (`HoVerNet.decode`),
+  fed NCHW views of the channels-last features (`fused_encode`).
 
 Fast mode only (the 'SAME' stem). The model's body must be bf16.
 """
@@ -32,7 +32,7 @@ from ..ops.fused_block_cuda import (
 )
 from ..utils.crops import crop_op
 from .blocks import BN_EPS, ResidualBlock
-from .hovernet import HoVerNet
+from .hovernet import Features, HoVerNet
 
 
 # the fused encoder's four block calls: d0, d1, and d2 cut 3 + 3 (the
@@ -153,6 +153,13 @@ def fused_forward(model: HoVerNet, imgs: torch.Tensor
     """The inference forward with the fused encoder: NHWC patches ->
     {branch: NCHW float32 logits}, as `model(imgs.permute(0, 3, 1, 2))`
     returns them."""
+    return model.decode(fused_encode(model, imgs))
+
+
+def fused_encode(model: HoVerNet, imgs: torch.Tensor) -> Features:
+    """The fused encoder's features as `HoVerNet.encode` returns them:
+    NHWC patches -> (d0, d1, d2, d3) NCHW, `conv_bot` applied and the
+    skips cropped."""
     d0, d1, d2, d3 = fused_encoder_feats(model, imgs)
     with _full_f32_matmul():
         d3 = _dot(d3, model.conv_bot.weight[:, :, 0, 0].t())
@@ -164,5 +171,4 @@ def fused_forward(model: HoVerNet, imgs: torch.Tensor
     td0 = (2 * (td1[0] - 5 * (k - 1)), 2 * (td1[1] - 5 * (k - 1)))
     d1 = crop_op(d1, (d1.shape[2] - td1[0], d1.shape[3] - td1[1]), "NCHW")
     d0 = crop_op(d0, (d0.shape[2] - td0[0], d0.shape[3] - td0[1]), "NCHW")
-    return {name: branch(d0, d1, d2, d3)
-            for name, branch in model.decoder.items()}
+    return d0, d1, d2, d3

@@ -11,6 +11,8 @@ net_desc.py):
 - skips `upsample2x(d[i+1]) + crop(d[i])` with the crops computed from the
   geometry;
 - input scaled by 1/255;
+- `forward` is `decode(encode(imgs))`: the encoder (stem, d0..d3,
+  `conv_bot`, the skips' crops) and the three decoders;
 - `forward(imgs, freeze_encoder=True)` is the first training phase's
   cut: d0's unit towers and all of d1..d3 get no gradient, while conv0,
   d0's shortcut and closing BN, `conv_bot` and the decoders learn.
@@ -51,6 +53,9 @@ from .blocks import (
     same_pad,
     upsample2x,
 )
+
+# the encoder's features as the decoders take them: (d0, d1, d2, d3)
+Features = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 # mode -> (input patch, output patch)
 MODE_SHAPES = {"original": (270, 80), "fast": (256, 164)}
@@ -201,6 +206,12 @@ class HoVerNet(nn.Module):
 
     def forward(self, imgs: torch.Tensor, freeze_encoder: bool = False
                 ) -> Dict[str, torch.Tensor]:
+        return self.decode(self.encode(imgs, freeze_encoder))
+
+    def encode(self, imgs: torch.Tensor, freeze_encoder: bool = False
+               ) -> Features:
+        """The encoder: stem, d0..d3 and `conv_bot`, with the skips
+        cropped to the decoders' geometry: (d0, d1, d2, d3) NCHW."""
         cfg = self.cfg
         x = imgs.to(cfg.dtype) / 255.0
         x = self.conv0(x)
@@ -219,6 +230,9 @@ class HoVerNet(nn.Module):
         td0 = (2 * (td1[0] - 5 * (k - 1)), 2 * (td1[1] - 5 * (k - 1)))
         d1 = crop_op(d1, (d1.shape[2] - td1[0], d1.shape[3] - td1[1]), "NCHW")
         d0 = crop_op(d0, (d0.shape[2] - td0[0], d0.shape[3] - td0[1]), "NCHW")
+        return d0, d1, d2, d3
 
-        return {name: branch(d0, d1, d2, d3)
+    def decode(self, feats: Features) -> Dict[str, torch.Tensor]:
+        """The decoders: {branch: NCHW logits} from `encode`'s features."""
+        return {name: branch(*feats)
                 for name, branch in self.decoder.items()}

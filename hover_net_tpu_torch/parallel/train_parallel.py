@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from ..models.blocks import global_batch_stats
 from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..ops.losses import hovernet_loss
+from ..runtime import span
 from .distributed import all_reduce_sum, average_
 from .mesh import resolve_device
 
@@ -118,6 +119,11 @@ def make_train_step(model: HoVerNet, schedule: Callable[[int], float],
     snapshots are the shard's first two samples: on rank 0 the global
     batch's when a shard holds two or more).
 
+    Each step opens four spans (runtime.span), named in a profiler's
+    trace: `hnt.train.forward` (targets, the forward, the heads'
+    softmax), `hnt.train.loss`, `hnt.train.backward` (with the ranks'
+    gradient average) and `hnt.train.optimizer` (grad norm, lr, Adam).
+
     autocast_dtype: None, or the body's compute dtype under
     `torch.autocast` (bf16: the JAX package's bf16 training, float32
     parameters and Adam state, a bf16 body, the heads and the loss in
@@ -134,34 +140,39 @@ def make_train_step(model: HoVerNet, schedule: Callable[[int], float],
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
         net, opt = state.model, state.optimizer
         net.train()
-        true_np = _one_hot(batch["np_map"], 2, dtype)
-        true = {"np": true_np, "hv": _nchw(batch["hv_map"].to(dtype))}
-        if nr_types is not None:
-            true["tp"] = _one_hot(batch["tp_map"], nr_types, dtype)
+        with span("hnt.train.forward"):
+            true_np = _one_hot(batch["np_map"], 2, dtype)
+            true = {"np": true_np, "hv": _nchw(batch["hv_map"].to(dtype))}
+            if nr_types is not None:
+                true["tp"] = _one_hot(batch["tp_map"], nr_types, dtype)
 
-        img = _nchw(batch["img"])
-        body = (torch.autocast(img.device.type, dtype=autocast_dtype)
-                if autocast_dtype is not None else contextlib.nullcontext())
-        with global_batch_stats(net, reduce), body:
-            out = net(img, freeze_encoder=freeze_encoder)
-        pred = {"np": F.softmax(out["np"].to(dtype), dim=1),
-                "hv": out["hv"].to(dtype)}
-        if nr_types is not None:
-            pred["tp"] = F.softmax(out["tp"].to(dtype), dim=1)
-        total, terms = hovernet_loss(pred, true, true_np[:, 1],
-                                     weights=loss_weights, reduce=reduce)
+            img = _nchw(batch["img"])
+            body = (torch.autocast(img.device.type, dtype=autocast_dtype)
+                    if autocast_dtype is not None
+                    else contextlib.nullcontext())
+            with global_batch_stats(net, reduce), body:
+                out = net(img, freeze_encoder=freeze_encoder)
+            pred = {"np": F.softmax(out["np"].to(dtype), dim=1),
+                    "hv": out["hv"].to(dtype)}
+            if nr_types is not None:
+                pred["tp"] = F.softmax(out["tp"].to(dtype), dim=1)
+        with span("hnt.train.loss"):
+            total, terms = hovernet_loss(pred, true, true_np[:, 1],
+                                         weights=loss_weights, reduce=reduce)
 
-        opt.zero_grad(set_to_none=True)
-        total.backward()
-        # the frozen parameters have no gradient, on every rank alike
-        grads = [p.grad for p in net.parameters() if p.grad is not None]
-        if group is not None:
-            average_(grads, group)
-        terms["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        for param_group in opt.param_groups:
-            param_group["lr"] = schedule(state.step)
-        opt.step()
+        with span("hnt.train.backward"):
+            opt.zero_grad(set_to_none=True)
+            total.backward()
+            # the frozen parameters have no gradient, on every rank alike
+            grads = [p.grad for p in net.parameters() if p.grad is not None]
+            if group is not None:
+                average_(grads, group)
+        with span("hnt.train.optimizer"):
+            terms["grad_norm"] = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            for param_group in opt.param_groups:
+                param_group["lr"] = schedule(state.step)
+            opt.step()
         state.step += 1
 
         # 2-sample prediction snapshots for the epoch viz panel
