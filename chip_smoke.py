@@ -7,10 +7,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels from csrc/, one nvcc per source, started
    together: post_proc_tail.cu (K1, K2 and K4) and fused_block.cu (K3),
-   whose build goes on beside phases 3-5 (they use K1 alone) and is
-   waited for at phase 6; prints K3's registers (ptxas) and its count of
-   HGMMA (wgmma) and UTMALDG (TMA load) instructions (cuobjdump), and
-   fails without both;
+   whose build goes on beside phase 3 (it uses K1 alone) and is
+   waited for by phase 4's tile path (its encoder is K3) and at phase 6;
+   prints K3's registers (ptxas) and its count of HGMMA (wgmma) and
+   UTMALDG (TMA load) instructions (cuobjdump), and fails without both;
 3. K1 against its plain PyTorch version on the card: identical labels on
    a 1148^2 canvas of synthetic nuclei mirrored about a 1000^2 source
    (with its valid mask), a noisy map, an empty map and a 164^2 map;
@@ -20,7 +20,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. the tile path as a user runs it: TileInferManager, fast mode, width
    64, bf16 body, seeded random weights loaded from a `.tar`, three
    1000^2 images written as json, then one typed image (nr_types=5);
-   K1 must have run once per image and the json must come from the
+   K1 must have run once per image, K3 (the default encoder) 4 times
+   per forward batch, and the json must come from the
    device tables through the native contour tracer; prints the per-tile
    split of device and host time. From this phase on, every inference
    manager the run builds (those inside the CLIs too), each replica its
@@ -45,9 +46,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the 3 + 3 split of d2 give bit-identical output;
    the fused forward agrees with the float32 standard forward on one
    patch within 15%;
-7. the WSI path as a user runs it: WSIInferManager with HNT_FUSED_ENC=1,
-   width 64, bf16, seeded random weights from a `.tar`, a 4096^2 `.npy`
-   pseudo-slide of synthetic nuclei with a `.png` mask, chunks of 2048
+7. the WSI path as a user runs it: WSIInferManager (d0..d2 as K3, the
+   default on a card), width 64, bf16, seeded random weights from a
+   `.tar`, a 4096^2 `.npy` pseudo-slide of synthetic nuclei with a
+   `.png` mask, chunks of 2048
    (several, so the prefetch runs), 2048^2 post-proc tiles; the json is
    written and a second call skips it; K3 ran 4 times per forward batch
    and K1 once per post-proc window batch; prints the inference and
@@ -100,17 +102,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    printed) through
    cli/run_infer on four held-out 1000^2 CoNSeP-style images (fast,
    width 64, bf16, --save_format all) three times: (a) the device path
-   with --profile_dir, (b) --host_post_proc, (c) HNT_FUSED_ENC=1. K1 ran
-   once per image in (a) and (c) and never in (b), K3 4 times per
-   forward batch in (c); the trace names K1's kernels; every json and
+   with --profile_dir, (b) --host_post_proc, (c) the standard cuDNN
+   encoder (`steps.standard_encoder()`). K1 ran once per image in (a) and
+   (c) and never in (b), K3 4 times per forward batch in (a) and (b)
+   (the default) and never in (c); the trace names K1's kernels; every json and
    mat is written; per image AJI((b), (a)) >= 0.93, the JAX package's
    floor for its device path against the host oracle;
    cli/convert_format writes one tsv row per nucleus. Prints
    cli/compute_stats of each run against the truth (types merged as
-   CoNSeP's loader merges them), the drift of (a) against (b) and of (c)
-   against (a) per image with mean and min (beside the JAX package's TPU
-   record) and of (a) and (c) against (d), the standard forward in
-   float32 (TF32 off: the bf16 noise floor of the checkpoint), each of
+   CoNSeP's loader merges them), the drift of (a) against (b) and of (a)
+   (K3) against (c) (cuDNN) per image with mean and min (beside the JAX
+   package's TPU record) and of (c) and (a) against (d), the standard
+   forward in float32 (TF32 off: the bf16 noise floor of the
+   checkpoint), each of
    the last three beside its record from before the bf16 body kept its
    BatchNorms in float32, the host
    post-processing seconds per image, the trained model's summary
@@ -123,10 +127,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    maps and instance ids, K1 launched once per window-batch shard (as
    often as the single-device run's batches, in fewer batches); (b)
    phase 7's pseudo-slide through `WSIInferManager(devices=["cuda:0"] *
-   2)` and the single-device manager, once with HNT_FUSED_ENC unset and
-   once set: the identical stitched prediction, json nuclei and instance
-   map, the same forward batches, K1 once per shard, K3 4 times per
-   forward shard with HNT_FUSED_ENC set; (c) phase 4's three
+   2)` and the single-device manager, once with the standard cuDNN
+   encoder (`steps.standard_encoder()`) and once with the default (K3):
+   the identical stitched prediction, json nuclei and instance map, the
+   same forward batches, K1 once per shard, K3 4 times per forward shard
+   with the default encoder; (c) phase 4's three
    untyped 1000^2 images through `TileInferManager(devices=["cuda:0"] *
    2)` (a dispatch thread a slot) and the single-device manager: the
    json of phase 4, K1 once per image. Each part runs single, striped
@@ -167,7 +172,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one typed tile; the forward's ms and the tiles/s beside their record
    from before the BatchNorms were float32),
    cli/bench_wsi on phase
-   7's 4096^2 size with cuDNN and with HNT_FUSED_ENC=1 (K1 once per
+   7's 4096^2 size with cuDNN (`steps.standard_encoder()`) and with K3,
+   the default (K1 once per
    window batch, K3 4 times per forward batch or never),
    cli/bench_train at batch 16 and 4 (float32 parameters, bf16 body),
    cli/probe_device_time --split forward (stages, prefix cuts, kernel
@@ -579,10 +585,16 @@ def write_tar(path, nr_types, seed):
 
 
 def run_slice(work):
-    """Phase 4: the tile path at full width, as a user calls it."""
+    """Phase 4: the tile path at full width, as a user calls it: K1 once
+    per image, K3 (the default encoder) 4 times per forward batch.
+    Returns the launches of K1 and K3, and the untyped manager."""
     import cv2
 
+    from hover_net_tpu_torch.cli.fused_encoder_drift import (
+        count_forward_batches,
+    )
     from hover_net_tpu_torch.infer.tile import TileInferManager
+    from hover_net_tpu_torch.ops.fused_block_cuda import fused_block_apply
     from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
 
     runs = [("untyped", None, 3), ("typed", 5, 1)]
@@ -601,7 +613,8 @@ def run_slice(work):
         type_info_path=os.path.join(ROOT, "type_info.json"), device="cuda")
         for name, nr_types, _ in runs}
 
-    proc_tail.launches = 0
+    batches = [count_forward_batches(mgr) for mgr in mgrs.values()]
+    proc_tail.launches = fused_block_apply.launches = 0
     t0 = time.perf_counter()
     for name, _, n_img in runs:
         out = os.path.join(work, f"out_{name}")
@@ -610,13 +623,16 @@ def run_slice(work):
         if written != n_img:
             raise AssertionError(f"{name}: {written}/{n_img} images written")
     wall = time.perf_counter() - t0
-    launches = proc_tail.launches
+    launches, k3 = proc_tail.launches, fused_block_apply.launches
+    n_fwd = sum(n[0] for n in batches)
 
     n_images = sum(n for _, _, n in runs)
     log(f"slice: {n_images} images in {wall:.3f} s wall, K1 launches "
-        f"{launches}")
+        f"{launches}, K3 launches {k3} in {n_fwd} forward batches")
     if launches != n_images:
         raise AssertionError(f"K1 ran {launches} times for {n_images} images")
+    if k3 != 4 * n_fwd or n_fwd == 0:
+        raise AssertionError(f"K3 ran {k3} times for {n_fwd} forward batches")
     stages = ("forward", "energy", "post_proc_tail", "tables", "finalize_ms")
     for name, _, _ in runs:
         for t in mgrs[name].timings:
@@ -631,7 +647,7 @@ def run_slice(work):
                 raise AssertionError(f"{path}: json disagrees")
             log(f"tile {name}/{t['name']}: {t['n_nuclei']} nuclei; ms "
                 + ", ".join(f"{s} {t[s]:.3f}" for s in stages))
-    return launches, mgrs["untyped"]
+    return launches, k3, mgrs["untyped"]
 
 
 def check_forward(mgr):
@@ -718,7 +734,8 @@ def build_kernels():
     """Phase 2: post_proc_tail.cu (K1, K2, K4) and fused_block.cu (K3)
     from csrc/, one nvcc each, started together. Waits for K1's library
     and returns `finish_k3`, which waits for K3's (its nvcc goes on
-    beside phases 3-5, which need K1 alone) and checks K3's registers
+    beside phase 3, which needs K1 alone; phase 4's tile path, whose
+    encoder is K3, waits for the build) and checks K3's registers
     from ptxas and its wgmma (HGMMA) and TMA load (UTMALDG)
     instructions; phase 6 calls it."""
     from concurrent.futures import ThreadPoolExecutor
@@ -963,22 +980,18 @@ def check_fused_forward(model):
 
 
 def run_wsi(mgr, dirs):
-    """Phase 7: `process_wsi_list` on the pseudo-slide, HNT_FUSED_ENC=1."""
+    """Phase 7: `process_wsi_list` on the pseudo-slide (K3 by default)."""
     from hover_net_tpu_torch.ops.fused_block_cuda import fused_block_apply
     from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
 
     out = os.path.join(dirs["wsi_out"], "slide.json")
-    os.environ["HNT_FUSED_ENC"] = "1"
-    try:
-        fused_block_apply.launches = 0
-        proc_tail.launches = 0
-        t0 = time.perf_counter()
-        written = mgr.process_wsi_list(dirs["slides"], dirs["wsi_out"],
-                                       input_mask_dir=dirs["masks"])
-        wall = time.perf_counter() - t0
-        k3, k1 = fused_block_apply.launches, proc_tail.launches
-    finally:
-        del os.environ["HNT_FUSED_ENC"]
+    fused_block_apply.launches = 0
+    proc_tail.launches = 0
+    t0 = time.perf_counter()
+    written = mgr.process_wsi_list(dirs["slides"], dirs["wsi_out"],
+                                   input_mask_dir=dirs["masks"])
+    wall = time.perf_counter() - t0
+    k3, k1 = fused_block_apply.launches, proc_tail.launches
     if written != 1 or not os.path.exists(out):
         raise AssertionError("the WSI run wrote no json")
     with open(out) as f:
@@ -1348,22 +1361,19 @@ def striped_post_proc(tar, work, card, device="cuda"):
 
 def striped_slide(tar, dirs, work, card, device="cuda"):
     """Phase 13 (b): phase 7's pseudo-slide through the 2-slot mesh
-    manager and the single-device manager in TURNS, once with
-    HNT_FUSED_ENC unset (cuDNN encoder) and once set (K3 on every
-    slot): the stitched prediction (before post-processing), the json
-    and the instance map must be identical to the first single-device
-    run's of the same encoder. Returns the launches of K1 and K3."""
-    if os.environ.get("HNT_FUSED_ENC"):
-        raise AssertionError("HNT_FUSED_ENC is set")
+    manager and the single-device manager in TURNS, once with the
+    standard cuDNN encoder (`steps.standard_encoder()`) and once with the
+    default (K3 on every slot): the stitched prediction (before
+    post-processing), the json and the instance map must be identical to
+    the first single-device run's of the same encoder. Returns the
+    launches of K1 and K3."""
+    from hover_net_tpu_torch.infer.steps import standard_encoder
+
     k1 = k3 = 0
     for fused in (False, True):
-        if fused:
-            os.environ["HNT_FUSED_ENC"] = "1"
-        try:
+        with standard_encoder(not fused):
             launches = striped_slide_turns(tar, dirs, work, card, device,
                                            fused)
-        finally:
-            os.environ.pop("HNT_FUSED_ENC", None)
         k1 += launches[0]
         k3 += launches[1]
     return k1, k3
@@ -1875,7 +1885,8 @@ def drift(name, want, got, names, tpu_record=False):
 def check_evaluation(work, tar, device="cuda"):
     """Phase 12: evaluation as a user runs it. A trained typed `.tar`
     through cli/run_infer three times on held-out images: (a) the device
-    path with --profile_dir, (b) --host_post_proc, (c) HNT_FUSED_ENC=1;
+    path with --profile_dir, (b) --host_post_proc, both with K3, the
+    default, (c) the standard cuDNN encoder (`steps.standard_encoder()`);
     launch counts, the trace, the outputs, AJI(b, a) >= AJI_FLOOR per
     image, cli/convert_format and cli/compute_stats against the truth.
     (d), the manager in float32, gives the bf16 floor (c) is read
@@ -1888,6 +1899,7 @@ def check_evaluation(work, tar, device="cuda"):
     from hover_net_tpu_torch.cli import compute_stats, convert_format
     from hover_net_tpu_torch.cli import run_infer
     from hover_net_tpu_torch.data.tiling import prepare_tile_patching
+    from hover_net_tpu_torch.infer.steps import standard_encoder
     from hover_net_tpu_torch.infer.tile import TileInferManager
     from hover_net_tpu_torch.models.checkpoints import load_torch_tar
     from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
@@ -1916,21 +1928,18 @@ def check_evaluation(work, tar, device="cuda"):
                  "--batch_size", str(batch)] + flags
                 + ["tile", "--input_dir", img_dir, "--output_dir", out[run],
                    "--save_format", "all"])
-        if run == "c":
-            os.environ["HNT_FUSED_ENC"] = "1"
-        try:
-            proc_tail.launches = fused_block_apply.launches = 0
-            t0 = time.perf_counter()
+        proc_tail.launches = fused_block_apply.launches = 0
+        t0 = time.perf_counter()
+        with standard_encoder(run == "c"):
             mgrs[run] = run_infer.main(argv)
-            secs[run] = time.perf_counter() - t0
-            k1[run], k3[run] = proc_tail.launches, fused_block_apply.launches
-        finally:
-            os.environ.pop("HNT_FUSED_ENC", None)
-        log(f"eval run ({run}) {' '.join(flags) or '(HNT_FUSED_ENC=1)'}: "
+        secs[run] = time.perf_counter() - t0
+        k1[run], k3[run] = proc_tail.launches, fused_block_apply.launches
+        log(f"eval run ({run}) {' '.join(flags) or '(standard encoder)'}: "
             f"{EVAL_IMAGES} images in {secs[run]:.3f} s, K1 launches "
             f"{k1[run]}, K3 launches {k3[run]}")
-    want = {"a": (EVAL_IMAGES, 0), "b": (0, 0),
-            "c": (EVAL_IMAGES, 4 * batches * EVAL_IMAGES)}
+    k3_runs = 4 * batches * EVAL_IMAGES
+    want = {"a": (EVAL_IMAGES, k3_runs), "b": (0, k3_runs),
+            "c": (EVAL_IMAGES, 0)}
     if any((k1[r], k3[r]) != want[r] for r in runs):
         raise AssertionError(f"launches (K1, K3) {k1} {k3}, want {want}")
 
@@ -1946,7 +1955,7 @@ def check_evaluation(work, tar, device="cuda"):
     if not k1_names:
         raise AssertionError("the --profile_dir trace does not name K1")
 
-    # the bf16 noise floor of this checkpoint, for reading (c): (d) the
+    # the bf16 noise floor of this checkpoint, for reading (a): (d) the
     # standard forward in float32 (TF32 off) through the same manager
     out["d"] = os.path.join(root, "out_d")
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -1974,13 +1983,13 @@ def check_evaluation(work, tar, device="cuda"):
                  maps["b"], maps["a"], names, tpu_record=True)
     pairs = {
         "fused_vs_standard": drift(
-            "fused_encoder_drift (c) K3 vs (a) standard forward", maps["a"],
-            maps["c"], names),
+            "fused_encoder_drift (a) K3 vs (c) standard forward", maps["c"],
+            maps["a"], names),
         "floor_standard_vs_float32": drift(
-            "bf16 floor (a) standard bf16 vs (d) standard float32",
-            maps["d"], maps["a"], names),
+            "bf16 floor (c) standard bf16 vs (d) standard float32",
+            maps["d"], maps["c"], names),
         "fused_vs_float32": drift(
-            "(c) K3 bf16 vs (d) standard float32", maps["d"], maps["c"],
+            "(a) K3 bf16 vs (d) standard float32", maps["d"], maps["a"],
             names)}
     for key, a in pairs.items():
         log_beside_record(f"phase 12 (typed, {EVAL_IMAGES} images) {key}",
@@ -2289,6 +2298,7 @@ def check_measurement(work, card, parts=lambda name, secs: None):
         parity_drift_sweep,
         probe_device_time,
     )
+    from hover_net_tpu_torch.infer.steps import standard_encoder
     from hover_net_tpu_torch.ops.fused_block_cuda import fused_block_apply
     from hover_net_tpu_torch.ops.post_proc_cuda import proc_tail
 
@@ -2300,7 +2310,7 @@ def check_measurement(work, card, parts=lambda name, secs: None):
                ckpt, time.perf_counter() - t0, RECIPE_SHA256["untyped"])
     wsi = ["--size", str(SLIDE), "--chunk_shape", "2048", "--workdir",
            os.path.join(root, "wsi")]
-    runs = [  # (name, main, argv, HNT_FUSED_ENC set)
+    runs = [  # (name, main, argv, the default encoder: K3 on the card)
         ("bench", bench.main, ["--work_dir", os.path.join(root, "bench")],
          False),
         ("bench_wsi (cuDNN)", bench_wsi.main, wsi, False),
@@ -2320,7 +2330,7 @@ def check_measurement(work, card, parts=lambda name, secs: None):
     res, secs = {}, {}
     for name, main_fn, argv, fused in runs:
         t0 = time.perf_counter()
-        with bench.fused_enc(fused):
+        with standard_encoder(not fused):
             res[name] = main_fn(argv)
         secs[name] = time.perf_counter() - t0
         torch.cuda.empty_cache()
@@ -2970,7 +2980,7 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     guard_bn_float32()
-    _, mgr = run_slice(work)
+    _, k3_slice, mgr = run_slice(work)
     # every slot of this one-card run is cuda:0 and shares the loaded
     # model, so a replica is made on the host to show model_on's copy
     mgr.model_on(torch.device("cpu"))
@@ -2996,6 +3006,7 @@ def main():
     torch.cuda.empty_cache()
     lap("6")
     k3_launches, k1_launches = run_wsi(wsi_mgr, dirs)
+    k3_launches += k3_slice
     lap("7")
     k1_wsi = wsi_real_nuclei(wsi_mgr, work)
     del wsi_mgr

@@ -307,21 +307,6 @@ def card_line(device) -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-@contextlib.contextmanager
-def fused_enc(on: bool):
-    """HNT_FUSED_ENC set (the encoder as K3, where `steps._use_fused_enc`
-    allows it) or unset inside the block; restored after."""
-    prev = os.environ.pop("HNT_FUSED_ENC", None)
-    if on:
-        os.environ["HNT_FUSED_ENC"] = "1"
-    try:
-        yield
-    finally:
-        os.environ.pop("HNT_FUSED_ENC", None)
-        if prev is not None:
-            os.environ["HNT_FUSED_ENC"] = prev
-
-
 # ------------------------------------------------------------ tile bench
 
 def e2e_manager(model_path, nr_types=None, width=64, dtype=torch.bfloat16,

@@ -7,14 +7,15 @@ of disk nuclei (bench's `synth_nuclei_image`, seed 7, one nucleus per
 post-processing, the json) and prints Mpx/s:
 
     python -m hover_net_tpu_torch.cli.bench_wsi [--size 8000]
-    HNT_FUSED_ENC=1 python -m hover_net_tpu_torch.cli.bench_wsi
     python -m hover_net_tpu_torch.cli.bench_wsi --device cpu --width 8 \
         --size 700 --chunk_shape 512 --tile_shape 256 --model_path m.tar
 
 The forward uses the trained checkpoint of cli/bench.py (trained and
 cached at the first run). The old `slide.json` is removed before the run
 (resume would skip the slide); the painted slide is kept in `--workdir`
-and reused. With HNT_FUSED_ENC set, the encoder runs as kernel K3.
+and reused. On a card the encoder's d0..d2 run as kernel K3, as in the
+WSI CLI (`infer/steps._use_fused_enc`); `main` inside
+`steps.standard_encoder()` runs the standard encoder instead.
 `--force_striped` runs the striped mesh path on two slots of the one
 device (`devices=[device] * 2`), which prices the striping against the
 single-device path. The JSON line adds the slide's `timings` (inference
@@ -120,7 +121,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "wall_s": dt, "n_nuclei": len(nuc),
         "path": ("striped" if len(mgr.devices) > 1
                  else "mmap" if args.hbm_pred_budget == 0 else "auto"),
-        "fused_enc": bool(os.environ.get("HNT_FUSED_ENC")),
+        "fused_enc": fused_block_apply.launches > k3,
         "timings": mgr.timings["slide"],
         "n_forward_batches": mgr.n_forward_batches,
         "n_window_batches": mgr.n_window_batches,

@@ -5,14 +5,14 @@ Counterpart of scripts/fused_encoder_drift.py. The parity sweep
 (cli/parity_drift_sweep.py) post-processes one forward's output two ways,
 so an encoder change cancels out of it; this isolates the encoder. The
 same tile runs through the tile CLI's pipeline (`TileInferManager`, fast,
-the trained checkpoint of cli/bench.py) with the bf16 standard forward
-(cuDNN) and with HNT_FUSED_ENC=1 (`models/encoder_fused.fused_forward`:
-d0..d2 as K3, BatchNorm folded into scale and offset pairs); both
-stitched maps go through the same post-processing (the energy and K1),
-and the two label maps are scored against each other by AJI and count.
-The tile also runs the standard forward in float32 (TF32 off), and the
-bf16 standard forward is scored against it: the bf16 floor that K3's
-drift is read against.
+the trained checkpoint of cli/bench.py) with the bf16 standard encoder
+(cuDNN, `steps.standard_encoder()`) and with the default one
+(`models/encoder_fused.fused_encode`: d0..d2 as K3, BatchNorm folded into
+scale and offset pairs); both stitched maps go through the same
+post-processing (the energy and K1), and the two label maps are scored
+against each other by AJI and count. The tile also runs the standard
+forward in float32 (TF32 off), and the bf16 standard forward is scored
+against it: the bf16 floor that K3's drift is read against.
 
     python -m hover_net_tpu_torch.cli.fused_encoder_drift [--n 20]
     python -m hover_net_tpu_torch.cli.fused_encoder_drift --device cpu \
@@ -44,13 +44,13 @@ import numpy as np
 import torch
 
 from ..infer.base import resolve_device
+from ..infer.steps import standard_encoder
 from ..ops.fused_block_cuda import fused_block_apply
 from .bench import (
     add_common_args,
     card_line,
     checkpoint_sha256,
     e2e_manager,
-    fused_enc,
     resolve_checkpoint,
     synth_nuclei_image,
 )
@@ -65,7 +65,7 @@ def tile_labels(mgr, img, fused: bool = False) -> np.ndarray:
     """The tile's label map through the manager's pipeline, its encoder
     standard or, where the gate allows it (a CUDA device, bf16, 4 * width
     a multiple of 128), fused (K3)."""
-    with fused_enc(fused):
+    with standard_encoder(not fused):
         dev_out, _ = mgr.predict_image_async(img)
     return mgr.finalize_prediction(img, dev_out, pull_pred_map=False)[1]
 

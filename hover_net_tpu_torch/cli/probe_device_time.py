@@ -35,9 +35,11 @@ patches (a WSI forward batch) whose kernel time is summed by layer group:
 stem, d0..d3, conv_bot, each decoder's u3..u1, the heads (every u0), K3's
 launches (`conv_gemm`), and "other" (what no group holds: the decoders'
 upsample-and-add skips, the crops, the output concat). The window runs
-twice: the standard cuDNN forward, then HNT_FUSED_ENC=1 (K3 for d0..d2
-on the card). On `--device cpu` the host clock times the plain versions
-and the windows read null (the profiler sees no device kernels).
+twice: the standard cuDNN encoder (`steps.standard_encoder()`), then the
+default forward (K3 for d0..d2 on the card). The forward stage runs the
+default forward too, the prefix cuts the standard modules. On `--device
+cpu` the host clock times the plain versions and the windows read null
+(the profiler sees no device kernels).
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from ..infer.steps import (
     extract_patches,
     forward_batches,
     infer_output,
+    standard_encoder,
     tables_tail,
 )
 from ..models.hovernet import HoVerNet, HoVerNetConfig
@@ -73,7 +76,6 @@ from .bench import (
     card_line,
     fill_synthetic,
     forward_flops,
-    fused_enc,
     synth_pred_map,
 )
 
@@ -172,8 +174,9 @@ def _group_of(event) -> str:
 
 
 def layer_group_ms(model: HoVerNet, imgs: torch.Tensor, fused: bool):
-    """One profiled forward (`infer_output`) of NHWC `imgs` with
-    HNT_FUSED_ENC unset or set (K3 on a GPU): ({group: kernel ms}, total
+    """One profiled forward (`infer_output`) of NHWC `imgs` with the
+    standard encoder (`steps.standard_encoder()`) or (`fused`) the default
+    one (K3 on a GPU): ({group: kernel ms}, total
     kernel ms, window ms on the host clock, the same forward's ms by CUDA
     events outside the profiler, how kernels were grouped), or None when
     the profiler saw no device event. A kernel is K3's by its name, else the
@@ -184,7 +187,7 @@ def layer_group_ms(model: HoVerNet, imgs: torch.Tensor, fused: bool):
     from torch.profiler import ProfilerActivity, profile, schedule
 
     cuda = imgs.device.type == "cuda"
-    with torch.no_grad(), fused_enc(fused):
+    with torch.no_grad(), standard_encoder(not fused):
         infer_output(model, imgs)  # warm-up (and K3's packing)
         # one traced forward after one untraced warm-up step of the
         # profiler: a trace's first milliseconds can lose kernels (a first
@@ -231,7 +234,7 @@ def layer_group_ms(model: HoVerNet, imgs: torch.Tensor, fused: bool):
                     groups[g] = groups.get(g, 0.0) + k.duration / 1e3
     total = sum(k.device_time for k in kernels) / 1e3
     groups["unattributed"] = total - sum(groups.values())
-    with torch.no_grad(), fused_enc(fused):
+    with torch.no_grad(), standard_encoder(not fused):
         event_ms = time_ms(lambda: infer_output(model, imgs), imgs.device, 3)
     return {"groups_ms": groups, "kernel_ms": total, "window_ms": window,
             "event_ms": event_ms,

@@ -15,12 +15,12 @@ writes it (`net_epoch=N.msgpack`), read without flax.
       --model_path ckpt.tar --model_mode fast \
       wsi --input_dir slides/ --output_dir out/ --proc_mag 40
 
-With HNT_FUSED_ENC=1 in the environment, a fast-mode bf16 model whose
+On a GPU a fast-mode model (bf16, as both subcommands build it) whose
 4 * width is a multiple of 128 runs its encoder d0..d2 as the fused-block
-CUDA kernel on a GPU. `--host_post_proc` (tile) post-processes on the
-host with the oracle (ops/post_proc_host.process) instead of the device
-kernel; `--profile_dir DIR` writes a torch.profiler trace of the run
-(tile or wsi) under DIR.
+CUDA kernel K3 (infer/steps._use_fused_enc). `--host_post_proc` (tile)
+post-processes on the host with the oracle (ops/post_proc_host.process)
+instead of the device kernel; `--profile_dir DIR` writes a
+torch.profiler trace of the run (tile or wsi) under DIR.
 
 `--n_devices N` runs on N cards from `--device` on (clamped, with a
 warning, to the cards there are; the CPU is one device): `tile` hands

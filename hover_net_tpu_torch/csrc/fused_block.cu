@@ -35,15 +35,17 @@
 // consecutive channels of a pixel), reading each residual chunk before any
 // store, since the output may overwrite the residual in place.
 //
-// Rounding points are the TPU kernel's and the plain version's: every
-// product accumulates in f32 and is rounded to bf16 once (conv2's nine
-// taps form one f32 sum); then the bf16 BN scale (rounded), the bf16
-// offset (rounded) and the ReLU; a residual is bf16(bf16(conv3) +
-// shortcut), and the strided shortcut is rounded on its own. The BN,
-// ReLU and residual ops run on bf16 pairs with the round-to-nearest
-// intrinsics __hmul2_rn / __hadd2_rn: for a product or sum of two bf16
-// values one rounding equals the plain version's f32 op rounded to bf16
-// (f32 carries more than 2 x 8 + 2 bits). Built with -fmad=false. Each
+// Rounding points are the plain version's and the model's own bf16
+// forward's: every product accumulates in f32 and is rounded to bf16 once
+// (conv2's nine taps form one f32 sum); a residual is bf16(bf16(conv3) +
+// shortcut), and the strided shortcut is rounded on its own; each folded
+// BN takes the bf16 value to float32, multiplies by its float32 scale and
+// adds its float32 offset (two f32 ops, __fmul_rn / __fadd_rn, never
+// fused), and rounds to bf16 once before the ReLU, as the model's float32
+// BatchNorms do. (The TPU kernel applies the BN in bf16, rounding after
+// the multiply and after the add.) The residual sum runs on bf16 pairs
+// with __hadd2_rn: for a sum of two bf16 values one rounding equals the
+// plain version's f32 sum rounded to bf16. Built with -fmad=false. Each
 // output element is summed in one fixed K order by one thread, with no
 // split-K and no atomics, so the output does not depend on the tile.
 //
@@ -100,10 +102,10 @@ struct Cfg {
 struct GemmArgs {
   bf16* out;          // [n, s_out, s_out, cout]
   const bf16* res;    // residual, same shape (may alias out) or null
-  const bf16* pre_s;  // pre-activation BN of A [cin] or null
-  const bf16* pre_o;
-  const bf16* s;      // epilogue BN [cout] + ReLU, or null
-  const bf16* o;
+  const float* pre_s;  // pre-activation BN of A [cin] or null
+  const float* pre_o;
+  const float* s;      // epilogue BN [cout] + ReLU, or null
+  const float* o;
   int s_out, cin, cout, stride, taps, th, tw, tw_log2, tiles_x;
   int sc_cin, sc_stride;  // the shortcut phase of unit 0's conv3 (SC)
 };
@@ -125,19 +127,34 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Two bf16 lanes at a time, each op rounded to bf16 once (round to
-// nearest even), as the plain version's bf16 ops: for a sum or product
-// of two bf16 values, rounding once equals rounding through f32 first.
-// relu(round(round(x * s) + o)):
-__device__ __forceinline__ uint32_t bn_relu2(uint32_t x, uint32_t s,
-                                             uint32_t o) {
-  return as_u32(__hmax2(__hadd2_rn(__hmul2_rn(as_b2(x), as_b2(s)), as_b2(o)),
-                        __float2bfloat162_rn(0.f)));
+// The folded BN and ReLU of two bf16 lanes in float32, rounded to bf16
+// once (round to nearest even): relu(round(x * s + o)), the product and
+// the sum each an f32 op, as the plain version computes them.
+__device__ __forceinline__ float bn_relu1(float x, float s, float o) {
+  return fmaxf(__fadd_rn(__fmul_rn(x, s), o), 0.f);
 }
 
-__device__ __forceinline__ uint4 bn_relu8(uint4 v, uint4 s, uint4 o) {
-  return make_uint4(bn_relu2(v.x, s.x, o.x), bn_relu2(v.y, s.y, o.y),
-                    bn_relu2(v.z, s.z, o.z), bn_relu2(v.w, s.w, o.w));
+__device__ __forceinline__ uint32_t bn_relu2(uint32_t x, float2 s, float2 o) {
+  const float2 v = __bfloat1622float2(as_b2(x));
+  return as_u32(__floats2bfloat162_rn(bn_relu1(v.x, s.x, o.x),
+                                      bn_relu1(v.y, s.y, o.y)));
+}
+
+// eight lanes: `s` and `o` point at eight float32 values, 16-byte aligned
+__device__ __forceinline__ uint4 bn_relu8(uint4 v, const float* s,
+                                          const float* o) {
+  const float4 s0 = __ldg(reinterpret_cast<const float4*>(s));
+  const float4 s1 = __ldg(reinterpret_cast<const float4*>(s) + 1);
+  const float4 o0 = __ldg(reinterpret_cast<const float4*>(o));
+  const float4 o1 = __ldg(reinterpret_cast<const float4*>(o) + 1);
+  return make_uint4(bn_relu2(v.x, make_float2(s0.x, s0.y),
+                             make_float2(o0.x, o0.y)),
+                    bn_relu2(v.y, make_float2(s0.z, s0.w),
+                             make_float2(o0.z, o0.w)),
+                    bn_relu2(v.z, make_float2(s1.x, s1.y),
+                             make_float2(o1.x, o1.y)),
+                    bn_relu2(v.w, make_float2(s1.z, s1.w),
+                             make_float2(o1.z, o1.w)));
 }
 
 __device__ __forceinline__ uint4 add8(uint4 a, uint4 b) {
@@ -146,14 +163,6 @@ __device__ __forceinline__ uint4 add8(uint4 a, uint4 b) {
   };
   return make_uint4(add2(a.x, b.x), add2(a.y, b.y), add2(a.z, b.z),
                     add2(a.w, b.w));
-}
-
-__device__ __forceinline__ uint32_t ldg4(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ uint4 ldg16(const bf16* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
 // ------------------------------------------------- barriers, TMA, wgmma
@@ -329,12 +338,7 @@ __device__ __forceinline__ void preact_rows(uint8_t* rows, int t, int k0,
     const int ch = k0 + 8 * swz_chunk(row, pc);
     if (ch >= p.cin) continue;
     uint4* q = reinterpret_cast<uint4*>(rows + row * kRowBytes + pc * 16);
-    uint4 v = *q;
-    v.x = bn_relu2(v.x, ldg4(p.pre_s + ch), ldg4(p.pre_o + ch));
-    v.y = bn_relu2(v.y, ldg4(p.pre_s + ch + 2), ldg4(p.pre_o + ch + 2));
-    v.z = bn_relu2(v.z, ldg4(p.pre_s + ch + 4), ldg4(p.pre_o + ch + 4));
-    v.w = bn_relu2(v.w, ldg4(p.pre_s + ch + 6), ldg4(p.pre_o + ch + 6));
-    *q = v;
+    *q = bn_relu8(*q, p.pre_s + ch, p.pre_o + ch);
   }
 }
 
@@ -475,7 +479,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (at[i] == ~(size_t)0) continue;
     const int c = n0 + ((threadIdx.x + kConsumers * i) % kChunks) * 8;
     if (p.res) v[i] = add8(v[i], r[i]);
-    if (p.s) v[i] = bn_relu8(v[i], ldg16(p.s + c), ldg16(p.o + c));
+    if (p.s) v[i] = bn_relu8(v[i], p.s + c, p.o + c);
     *reinterpret_cast<uint4*>(p.out + at[i]) = v[i];
   }
 }
@@ -564,10 +568,10 @@ int conv(const void* x, int n, int s_in, int cin, const void* w, int taps,
   GemmArgs a;
   a.out = static_cast<bf16*>(out);
   a.res = static_cast<const bf16*>(res);
-  a.pre_s = static_cast<const bf16*>(pre_s);
-  a.pre_o = static_cast<const bf16*>(pre_o);
-  a.s = static_cast<const bf16*>(s);
-  a.o = static_cast<const bf16*>(o);
+  a.pre_s = static_cast<const float*>(pre_s);
+  a.pre_o = static_cast<const float*>(pre_o);
+  a.s = static_cast<const float*>(s);
+  a.o = static_cast<const float*>(o);
   a.s_out = s_out;
   a.cin = cin;
   a.cout = cout;

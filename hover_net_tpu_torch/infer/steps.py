@@ -3,7 +3,8 @@
 Counterpart of hover_net_tpu/infer/steps.py. The output contract is the
 JAX package's: a per-pixel channel concat of [tp argmax (typed only), np
 foreground prob, hv_x, hv_y] in NHWC, float32. `infer_output` runs the
-encoder as the fused-block CUDA kernel K3 behind `_use_fused_enc`.
+encoder's d0..d2 as the fused-block CUDA kernel K3 wherever the model and
+the device allow it (`_use_fused_enc`), and `HoVerNet.encode` elsewhere.
 
 `make_tile_pipeline` is the counterpart of the JAX `run_dynamic` program:
 padded image -> patch gather -> forward -> stitch -> reflect-101 mirror
@@ -17,8 +18,8 @@ the host, so that timing a call never waits on the device.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
-import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,14 +35,37 @@ from ..ops.post_proc_device import (
 
 
 def _use_fused_enc(model: HoVerNet, device) -> bool:
-    """Gate of the fused-block encoder (kernel K3, models/encoder_fused.py):
-    HNT_FUSED_ENC set, fast mode, 4 * width a multiple of 128, a bf16
-    body, and a CUDA device. Opt-in, as in the JAX package; on the CPU
-    the fused path runs only when called directly."""
+    """Gate of the fused-block encoder (kernel K3, models/encoder_fused.py),
+    decided from the model and the device alone: fast mode (the 'SAME'
+    stem), 4 * width a multiple of 128, a bf16 body, a CUDA device, the
+    model in eval mode (K3 folds the BatchNorms' running statistics) and
+    autograd off (K3 has no backward). Elsewhere, and on the CPU, the
+    forward runs `HoVerNet.encode`; `fused_encode` runs the fused path
+    (the plain version on the CPU) when called directly."""
     cfg = model.cfg
-    return (bool(os.environ.get("HNT_FUSED_ENC")) and cfg.mode == "fast"
-            and (4 * cfg.width) % 128 == 0 and cfg.dtype == torch.bfloat16
+    return (cfg.mode == "fast" and (4 * cfg.width) % 128 == 0
+            and cfg.dtype == torch.bfloat16 and not model.training
+            and not torch.is_grad_enabled()
             and torch.device(device).type == "cuda")
+
+
+# set inside `standard_encoder()`: read by `infer_output` in every thread
+_standard_only = False
+
+
+@contextlib.contextmanager
+def standard_encoder(on: bool = True):
+    """Inside the block (`on`), `infer_output` runs `HoVerNet.encode` in
+    every thread, also where `_use_fused_enc` would take K3; with `on`
+    False it keeps the default. The measurement tools compare the two
+    encoders on one card with it (chip_smoke.py, cli/probe_device_time,
+    cli/fused_encoder_drift). Restored after."""
+    global _standard_only
+    prev, _standard_only = _standard_only, on
+    try:
+        yield
+    finally:
+        _standard_only = prev
 
 
 # the tile pipeline's stages, in order: each one's device ms runs from
@@ -101,13 +125,14 @@ _forward_events: contextvars.ContextVar[Optional[StageEvents]] = \
 
 def infer_output(model: HoVerNet, imgs: torch.Tensor) -> torch.Tensor:
     """NHWC images [N, H, W, 3] (uint8 or float, 0..255) -> NHWC float32
-    [N, h, w, C] head activations. Behind `_use_fused_enc` the encoder
-    runs as kernel K3. Inside `forward_batches(..., events=)` the
-    encoder's and the decoders' device time are added to the events'
-    parts `encoder` and `decoders`."""
+    [N, h, w, C] head activations. Where `_use_fused_enc` allows it, and
+    outside `standard_encoder()`, the encoder's d0..d2 run as kernel K3.
+    Inside `forward_batches(...,
+    events=)` the encoder's and the decoders' device time are added to
+    the events' parts `encoder` and `decoders`."""
     events = _forward_events.get()
     start = events.record() if events is not None else None
-    if _use_fused_enc(model, imgs.device):
+    if not _standard_only and _use_fused_enc(model, imgs.device):
         feats = fused_encode(model, imgs)
     else:
         feats = model.encode(imgs.permute(0, 3, 1, 2))

@@ -42,10 +42,11 @@ process:
   sum adds exact zeros and the instance map is the single-device path's,
   bit for bit;
 - each shard's forward runs whole on one device, so `_use_fused_enc`
-  decides there as on one device: with HNT_FUSED_ENC set the encoder is
-  kernel K3 on every slot. The JAX manager keeps the standard encoder
-  under a mesh, where GSPMD cannot partition the Pallas call; one
-  process that runs each shard on its own device has no such limit.
+  decides there as on one device: where it allows K3 (a bf16 fast model
+  on a card) the encoder is kernel K3 on every slot. The JAX manager
+  keeps the standard encoder under a mesh, where GSPMD cannot partition
+  the Pallas call; one process that runs each shard on its own device
+  has no such limit.
 
 Differences from the JAX manager, all of them deliberate:
 

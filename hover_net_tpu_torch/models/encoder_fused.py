@@ -14,7 +14,11 @@ weights as the JAX `pack_block` does; `fused_encoder_feats` and
 - the decoders are the model's own `DecoderBranch`es (`HoVerNet.decode`),
   fed NCHW views of the channels-last features (`fused_encode`).
 
-Fast mode only (the 'SAME' stem). The model's body must be bf16.
+Fast mode only (the 'SAME' stem). The model's body must be bf16. The
+inference forward (`infer/steps.infer_output`) runs `fused_encode` by
+default wherever `steps._use_fused_enc` allows it: a CUDA device, fast
+mode, a bf16 body, 4 * width a multiple of 128, the model in eval mode and
+autograd off.
 """
 
 from __future__ import annotations
@@ -108,23 +112,39 @@ def pack_block(block: ResidualBlock, count: int, *, has_u0: bool = True,
     return out
 
 
+def _folded(model: HoVerNet) -> List[Tuple[dict, str]]:
+    """(owner, key) of each parameter and buffer of d0..d2, the tensors the
+    packs fold: the module's `_parameters` or `_buffers` dict and the
+    tensor's key in it."""
+    return [(own, k) for block in (model.d0, model.d1, model.d2)
+            for mod in block.modules()
+            for own in (mod._parameters, mod._buffers)
+            for k, t in own.items() if t is not None]
+
+
+@torch.no_grad()
 def pack_encoder(model: HoVerNet) -> Packs:
     """{call: (packed, the kernel's layout of it)} for the four block
     calls of `CALLS`, built once per set of weights (cached on the model;
-    rebuilt when a parameter or buffer changes in place, as
-    `load_state_dict` does, or the model moves to another device, as a
-    copy of it does)."""
+    rebuilt when a tensor of d0..d2 is replaced or changes in place, as
+    `load_state_dict` changes it, or the model moves to another device,
+    as a copy of it does). The check of a cached set looks up each folded
+    tensor where its module keeps it and reads its version, so it walks
+    no module tree on a forward. Built with autograd off, the packs hold
+    no graph, so the model stays `copy.deepcopy`-able after its first
+    fused forward (`InferManagerBase.model_on` copies it then)."""
     dev = next(model.parameters()).device
-    stamp = (sum(t._version for t in model.state_dict().values()), dev)
     cached = getattr(model, "_fused_packs", None)
-    if cached is not None and cached[0] == stamp:
-        return cached[1]
+    if cached is not None and cached[0] == dev and all(
+            own[k] is t and t._version == v for own, k, t, v in cached[1]):
+        return cached[2]
+    folded = [(own, k, own[k], own[k]._version) for own, k in _folded(model)]
     packs = {}
     for name, block, base, kw in CALLS:
         flags = {k: v for k, v in kw.items() if k != "stride"}
         packed = pack_block(getattr(model, block), unit_base=base, **flags)
         packs[name] = (packed, kernel_units(packed, dev, **flags))
-    model._fused_packs = (stamp, packs)
+    model._fused_packs = (dev, folded, packs)
     return packs
 
 

@@ -10,8 +10,10 @@ final BN + ReLU, inference BN folded. It replaces the TPU kernel
 the same `packed` dict (models/encoder_fused.pack_block).
 
 - CPU tensors go to `fused_block_reference`, the plain version: the same
-  rounding points (f32-accumulated products rounded to bf16, then the
-  bf16 BN scale and offset and the ReLU, bf16 residual sums).
+  rounding points (f32-accumulated products rounded to bf16, bf16
+  residual sums, and each folded BN applied to the bf16 value in float32,
+  as the model's own BatchNorms compute, rounded to bf16 once before the
+  ReLU).
 - CUDA tensors go to the kernel: per residual unit, one call into the
   library that launches its three convolutions (TMA-fed wgmma implicit
   GEMMs; unit 0's strided shortcut runs inside conv3's launch), the conv1
@@ -58,8 +60,11 @@ def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _bn_relu(y: torch.Tensor, s: torch.Tensor, o: torch.Tensor):
-    """relu(y * bf16(s) + bf16(o)), each op rounded to bf16."""
-    return torch.relu(y * s.to(BF16) + o.to(BF16))
+    """relu(y * s + o) of bf16 `y` in the dtype of the scale `s`, rounded
+    to bf16: with the float32 affines of `pack_block` (the kernel's) one
+    rounding, after the add; with bf16 affines, as the JAX package's TPU
+    kernel applies them, one after the multiply and one after the add."""
+    return torch.relu((y.to(s.dtype) * s + o.to(s.dtype)).to(BF16))
 
 
 def _conv3x3(t: torch.Tensor, w2: torch.Tensor, stride: int) -> torch.Tensor:
@@ -133,11 +138,15 @@ def kernel_units(packed: Dict[str, torch.Tensor], device, *, count: int,
                  ) -> List[Dict[str, torch.Tensor]]:
     """The kernel's layout of `packed`: per-unit weights, K-major as
     [cout][taps][k] (a 1x1 weight [K, N] -> [N, K]; the 3x3 taps [9, K, N]
-    -> [N, 9, K]), and bf16 BN affines, on `device`. Callers that run a
-    block many times build it once (models/encoder_fused.pack_encoder)."""
+    -> [N, 9, K]) in bf16, and float32 BN affines, on `device`. Callers
+    that run a block many times build it once
+    (models/encoder_fused.pack_encoder)."""
 
     def b(t):
         return t.to(device=device, dtype=BF16).contiguous()
+
+    def f(t):
+        return t.to(device=device, dtype=torch.float32).contiguous()
 
     def wt(w):  # [K, N] -> [N, K]
         return b(w.t())
@@ -148,19 +157,19 @@ def kernel_units(packed: Dict[str, torch.Tensor], device, *, count: int,
     units = []
     if has_u0:
         units.append(dict(wsct=wt(packed["wsc"]), w1t=wt(packed["w1_0"]),
-                          s1=b(packed["s1_0"]), o1=b(packed["o1_0"]),
-                          w2t=wt3(packed["w2_0"]), s2=b(packed["s2_0"]),
-                          o2=b(packed["o2_0"]), w3t=wt(packed["w3_0"])))
+                          s1=f(packed["s1_0"]), o1=f(packed["o1_0"]),
+                          w2t=wt3(packed["w2_0"]), s2=f(packed["s2_0"]),
+                          o2=f(packed["o2_0"]), w3t=wt(packed["w3_0"])))
     for u in range(count - 1 if has_u0 else count):
-        units.append(dict(pre_s=b(packed["ps"][u]), pre_o=b(packed["po"][u]),
-                          w1t=wt(packed["w1r"][u]), s1=b(packed["s1r"][u]),
-                          o1=b(packed["o1r"][u]),
+        units.append(dict(pre_s=f(packed["ps"][u]), pre_o=f(packed["po"][u]),
+                          w1t=wt(packed["w1r"][u]), s1=f(packed["s1r"][u]),
+                          o1=f(packed["o1r"][u]),
                           w2t=wt3(packed["w2r"][9 * u:9 * u + 9]),
-                          s2=b(packed["s2r"][u]), o2=b(packed["o2r"][u]),
+                          s2=f(packed["s2r"][u]), o2=f(packed["o2r"][u]),
                           w3t=wt(packed["w3r"][u])))
     if final_bn:
-        units[-1]["sb"] = b(packed["sb"])
-        units[-1]["ob"] = b(packed["ob"])
+        units[-1]["sb"] = f(packed["sb"])
+        units[-1]["ob"] = f(packed["ob"])
     return units
 
 

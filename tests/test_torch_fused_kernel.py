@@ -22,6 +22,7 @@ import pytest
 import torch
 from torch import nn
 
+from hover_net_tpu_torch.infer import steps
 from hover_net_tpu_torch.models.blocks import ResidualBlock
 from hover_net_tpu_torch.models.encoder_fused import fused_forward, pack_block
 from hover_net_tpu_torch.models.hovernet import HoVerNet, HoVerNetConfig
@@ -217,3 +218,31 @@ def test_fused_forward_on_card(cuda):
         assert torch.isfinite(g).all()
         rel = ((g - w).abs().max() / w.abs().max()).item()
         assert rel < 0.15, (name, rel)
+
+
+def test_inference_forward_takes_k3_by_default(cuda):
+    """Width 32, bf16, eval mode, autograd off: `steps.infer_output` runs
+    d0..d2 as K3 (4 launches) and gives the heads of `fused_forward`
+    exactly; in train mode, with autograd on, or inside
+    `steps.standard_encoder()` it runs the standard encoder (no
+    launch)."""
+    cfg = HoVerNetConfig(mode="fast", nr_types=None, width=W, dtype=BF16)
+    net = HoVerNet(cfg, generator=torch.Generator().manual_seed(0))
+    net = net.to(cuda).eval()
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, (2, 256, 256, 3), dtype=np.uint8)).to(cuda)
+    before = fused_block_apply.launches
+    with torch.no_grad():
+        got = steps.infer_output(net, x)
+        assert fused_block_apply.launches == before + 4
+        out = fused_forward(net, x)
+    want = torch.cat([torch.softmax(out["np"], 1)[:, 1:2], out["hv"]],
+                     1).permute(0, 2, 3, 1)
+    assert torch.equal(got, want)
+    before = fused_block_apply.launches
+    with torch.no_grad(), steps.standard_encoder():
+        steps.infer_output(net, x)
+    steps.infer_output(net, x)
+    with torch.no_grad():
+        steps.infer_output(net.train(), x)
+    assert fused_block_apply.launches == before

@@ -30,6 +30,9 @@ BLOCKS = {
     "d2b": (256, 128, 512, 6, 2, dict(count=3, has_u0=False, unit_base=3)),
 }
 
+# the units' BN scale and offset keys
+AFFINES = ("pre_s", "pre_o", "s1", "o1", "s2", "o2", "sb", "ob")
+
 
 @torch.no_grad()
 def make_block(cin, c1, cout, count, stride, seed=0):
@@ -54,13 +57,14 @@ def test_kernel_units_round_trip_to_packed(name):
     units = kernel_units(packed, "cpu", count=kw["count"], has_u0=has_u0,
                          final_bn=final_bn)
     assert len(units) == kw["count"]
-    for u in units:
-        assert all(t.dtype == BF16 and t.is_contiguous() for t in u.values())
+    for u in units:  # bf16 weights, float32 BN affines
+        assert all(t.dtype == (torch.float32 if k in AFFINES else BF16)
+                   and t.is_contiguous() for k, t in u.items())
         assert u["w1t"].shape[0] == u["w2t"].shape[0] == c1
         assert u["w2t"].shape[1:] == (9, c1) and u["w3t"].shape == (cout, c1)
 
     def same(kernel_t, packed_t):
-        assert torch.equal(kernel_t, packed_t.to(BF16))
+        assert torch.equal(kernel_t, packed_t.to(kernel_t.dtype))
 
     rest = units[1:] if has_u0 else units
     if has_u0:
