@@ -15,6 +15,17 @@ writes it (`net_epoch=N.msgpack`), read without flax.
       --model_path ckpt.tar --model_mode fast \
       wsi --input_dir slides/ --output_dir out/ --proc_mag 40
 
+`--model_mode` picks the model (models/zoo.py): HoVer-Net in `fast`
+(256 -> 164 patches) or `original` (270 -> 80) mode at `--width`, or
+CellViT-SAM-H in `cellvit_sam_h` (ViT-H encoder with windowed and global
+attention, 1024 -> 960 patches, batch 8 by default, typed: give
+`--nr_types 6` for PanNuke; `--model_path` a CellViT `.pth` or a `.tar`):
+
+  python -m hover_net_tpu_torch.cli.run_infer \
+      --model_path CellViT-SAM-H-x40.pth --model_mode cellvit_sam_h \
+      --nr_types 6 --type_info_path type_info.json \
+      wsi --input_dir slides/ --output_dir out/
+
 On a GPU a fast-mode model (bf16, as both subcommands build it) whose
 4 * width is a multiple of 128 runs its encoder d0..d2 as the fused-block
 CUDA kernel K3 (infer/steps._use_fused_enc). `--host_post_proc` (tile)
@@ -34,6 +45,8 @@ from __future__ import annotations
 import argparse
 import logging
 
+from ..models.zoo import DEFAULT_BATCH, MODES
+
 
 def build_parser():
     p = argparse.ArgumentParser("hover_net_tpu_torch.run_infer")
@@ -43,10 +56,12 @@ def build_parser():
     p.add_argument("--model_path", required=True,
                    help="checkpoint: a reference-format .tar or a "
                         "JAX .msgpack")
-    p.add_argument("--model_mode", default="fast",
-                   choices=["original", "fast"])
-    p.add_argument("--batch_size", type=int, default=32)
-    p.add_argument("--width", type=int, default=64)
+    p.add_argument("--model_mode", default="fast", choices=MODES)
+    p.add_argument("--batch_size", type=int, default=None,
+                   help="patches a forward batch (default: 32 for "
+                        "HoVer-Net, 8 for CellViT)")
+    p.add_argument("--width", type=int, default=64,
+                   help="HoVer-Net's width (CellViT's are the published)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
     p.add_argument("--nr_inference_workers", type=int, default=8,
@@ -112,7 +127,8 @@ def main(argv=None):
     common = dict(
         model_path=args.model_path, mode=args.model_mode,
         nr_types=args.nr_types if args.nr_types > 0 else None,
-        type_info_path=args.type_info_path, batch_size=args.batch_size,
+        type_info_path=args.type_info_path,
+        batch_size=args.batch_size or DEFAULT_BATCH[args.model_mode],
         width=args.width, device=args.device, n_devices=args.n_devices)
     with runtime.profile_trace(args.profile_dir):
         if args.command == "tile":

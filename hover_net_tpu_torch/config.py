@@ -69,7 +69,11 @@ class TrainConfig:
     shape_override: Optional[Dict[str, Tuple[int, int]]] = None
 
     def __post_init__(self):
-        assert self.model_mode in MODE_SHAPES, self.model_mode
+        if self.model_mode not in MODE_SHAPES:
+            raise ValueError(
+                f"model_mode {self.model_mode!r}: run_train trains HoVer-Net "
+                f"in {sorted(MODE_SHAPES)} mode only (CellViT runs through "
+                f"run_infer, from a trained checkpoint)")
         if self.phases is None:
             self.phases = default_phases(self.model_mode, self.pretrained)
         if not self.type_classification:

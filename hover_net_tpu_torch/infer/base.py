@@ -1,10 +1,14 @@
 """Shared inference manager: devices, model and checkpoint, type info, json.
 
-Counterpart of hover_net_tpu/infer/base.py. A checkpoint is a reference
-PyTorch `.tar` ({'desc': state_dict}) or the port trainer's `.tar`, or a
-`.msgpack` of the JAX package (its trainer's `net_epoch=N.msgpack`),
-read without flax and checked against the model as the JAX managers
-check it (models/checkpoints.load_model_state); either loads into the
+Counterpart of hover_net_tpu/infer/base.py. The manager builds the model
+of its `mode` (models/zoo.py): HoVer-Net in `fast` or `original` mode, or
+CellViT-SAM-H in `cellvit_sam_h` (the port's own; the JAX package has
+none). A HoVer-Net checkpoint is a reference PyTorch `.tar` ({'desc':
+state_dict}) or the port trainer's `.tar`, or a `.msgpack` of the JAX
+package (its trainer's `net_epoch=N.msgpack`), read without flax and
+checked against the model as the JAX managers check it
+(models/checkpoints.load_model_state); a CellViT checkpoint is its
+`.pth` ({'model_state_dict': ...}) or a `.tar`. Each loads into the
 port's module tree with strict=True.
 
 A manager runs on an ordered list of devices (`devices`): the first
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from ..models.checkpoints import load_model_state
-from ..models.hovernet import HoVerNet, HoVerNetConfig
+from ..models.zoo import build_model, model_config
 from ..ops.instance_table import emit_nuc_json
 from ..parallel.mesh import canonical_device, resolve_device
 from ..runtime import span
@@ -101,21 +105,19 @@ class InferManagerBase:
         else:
             self.devices = resolve_devices(n_devices, device)
         self.device = self.devices[0]
-        self.cfg = HoVerNetConfig(mode=mode, nr_types=nr_types, width=width,
-                                  dtype=dtype)
+        self.cfg = model_config(mode, nr_types, width, dtype)
         build: Dict[str, float] = {}
         with span("hnt.model.build", build, "model_build"):
-            self.model = HoVerNet(self.cfg)
-            self.model.load_state_dict(load_model_state(model_path, self.cfg),
-                                       strict=True)
+            self.model = build_model(self.cfg,
+                                     load_model_state(model_path, self.cfg))
             self.model.to(self.device).eval()
         self._build_s = build["model_build"]
-        self._replicas: Dict[torch.device, HoVerNet] = {}
+        self._replicas: Dict[torch.device, torch.nn.Module] = {}
         self.nr_types = nr_types
         self.batch_size = batch_size
         self.type_info = load_type_info(type_info_path, nr_types)
 
-    def model_on(self, device: torch.device) -> HoVerNet:
+    def model_on(self, device: torch.device) -> torch.nn.Module:
         """The model on `device`: the loaded one on the first device, else
         a copy made at the first call for that device and kept."""
         if device == self.device:

@@ -19,31 +19,33 @@ the host, so that timing a call never waits on the device.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..models.encoder_fused import fused_encode
-from ..models.hovernet import HoVerNet
+from ..models.hovernet import HoVerNet, HoVerNetConfig
 from ..ops.post_proc_cuda import proc_tail
 from ..ops.post_proc_device import (
     compact_labels_u16,
     energy_inputs,
     instance_tables,
 )
+from ..runtime import forward_events
 
 
 def _use_fused_enc(model: HoVerNet, device) -> bool:
     """Gate of the fused-block encoder (kernel K3, models/encoder_fused.py),
-    decided from the model and the device alone: fast mode (the 'SAME'
-    stem), 4 * width a multiple of 128, a bf16 body, a CUDA device, the
-    model in eval mode (K3 folds the BatchNorms' running statistics) and
-    autograd off (K3 has no backward). Elsewhere, and on the CPU, the
-    forward runs `HoVerNet.encode`; `fused_encode` runs the fused path
-    (the plain version on the CPU) when called directly."""
+    decided from the model and the device alone: a HoVer-Net (K3 is its
+    encoder's block; CellViT says no), fast mode (the 'SAME' stem),
+    4 * width a multiple of 128, a bf16 body, a CUDA device, the model in
+    eval mode (K3 folds the BatchNorms' running statistics) and autograd
+    off (K3 has no backward). Elsewhere, and on the CPU, the forward runs
+    the model's `encode`; `fused_encode` runs the fused path (the plain
+    version on the CPU) when called directly."""
     cfg = model.cfg
-    return (cfg.mode == "fast" and (4 * cfg.width) % 128 == 0
+    return (isinstance(cfg, HoVerNetConfig) and cfg.mode == "fast"
+            and (4 * cfg.width) % 128 == 0
             and cfg.dtype == torch.bfloat16 and not model.training
             and not torch.is_grad_enabled()
             and torch.device(device).type == "cuda")
@@ -105,9 +107,12 @@ class StageEvents:
             self.parts.append((name, start, end))
 
     def ms(self) -> Dict[str, float]:
-        if not self.stages:
+        if self.stages:
+            self.stages[-1][1].synchronize()
+        elif self.parts:
+            self.parts[-1][2].synchronize()
+        else:
             return {}
-        self.stages[-1][1].synchronize()
         out = {name: prev.elapsed_time(ev) for (_, prev), (name, ev)
                in zip(self.stages, self.stages[1:])}
         for name, start, end in self.parts:
@@ -115,22 +120,16 @@ class StageEvents:
         return out
 
 
-# the StageEvents of the `forward_batches` call running in this thread
-# (a context variable: threads and calls never share it), to which
-# `infer_output` adds its encoder's and decoders' device time; the
-# function keeps its (model, imgs) signature for every caller
-_forward_events: contextvars.ContextVar[Optional[StageEvents]] = \
-    contextvars.ContextVar("hnt_forward_events", default=None)
-
-
 def infer_output(model: HoVerNet, imgs: torch.Tensor) -> torch.Tensor:
     """NHWC images [N, H, W, 3] (uint8 or float, 0..255) -> NHWC float32
     [N, h, w, C] head activations. Where `_use_fused_enc` allows it, and
     outside `standard_encoder()`, the encoder's d0..d2 run as kernel K3.
     Inside `forward_batches(...,
-    events=)` the encoder's and the decoders' device time are added to
-    the events' parts `encoder` and `decoders`."""
-    events = _forward_events.get()
+    events=)` (or wherever `runtime.forward_events` is set) the encoder's
+    and the decoders' device time are added to the events' parts named by
+    the model's `forward_parts`, `encoder` and `decoders` by default; a
+    model may add parts of its own layers (models/cellvit.py)."""
+    events = forward_events.get()
     start = events.record() if events is not None else None
     if not _standard_only and _use_fused_enc(model, imgs.device):
         feats = fused_encode(model, imgs)
@@ -140,8 +139,9 @@ def infer_output(model: HoVerNet, imgs: torch.Tensor) -> torch.Tensor:
     out = model.decode(feats)
     if events is not None:
         end = events.record()
-        events.part("encoder", start, mid)
-        events.part("decoders", mid, end)
+        enc, dec = getattr(model, "forward_parts", ("encoder", "decoders"))
+        events.part(enc, start, mid)
+        events.part(dec, mid, end)
     parts = []
     if "tp" in out:
         tp = torch.argmax(torch.softmax(out["tp"], dim=1), dim=1)
@@ -205,7 +205,7 @@ def forward_batches(model: HoVerNet, patches: torch.Tensor,
     is more than twice that (80 patches at batch 32: 27 + 27 + 26, not
     32 + 32 + 16); otherwise one call takes all K. `events` receives the
     sub-batches' `encoder` and `decoders` parts."""
-    token = _forward_events.set(events)
+    token = forward_events.set(events)
     try:
         k = patches.shape[0]
         if batch and 2 * batch < k:
@@ -215,7 +215,7 @@ def forward_batches(model: HoVerNet, patches: torch.Tensor,
                               for i in range(0, k, eff)])
         return infer_output(model, patches)
     finally:
-        _forward_events.reset(token)
+        forward_events.reset(token)
 
 
 def assemble_grid(patch_out: torch.Tensor,

@@ -30,10 +30,10 @@ process:
   device's model replica, and the chunk image is pushed once to each
   distinct device;
 - the device pred buffer is row-striped (`_alloc_pred_dev`): each slot
-  owns `s_rows` core rows plus `_STRIPE_HALO` landing rows on either
-  side, and the budget is `hbm_pred_budget` a slot; the batch's outputs
-  are gathered to every slot, which writes the patches that touch its
-  core rows (`_scatter`);
+  owns `s_rows` core rows plus `_stripe_halo(patch_output)` landing
+  rows on either side, and the budget is `hbm_pred_budget` a slot; the
+  batch's outputs are gathered to every slot, which writes the patches
+  that touch its core rows (`_scatter`);
 - a window batch is `batch` windows a slot: each slot cuts every
   window's overlap with its core rows, a `psum_scatter` hands slot d its
   shard fully assembled, and the post-processing tail (K1 on a GPU) runs
@@ -100,9 +100,9 @@ from ..parallel.mesh import (
     shard_batch,
     shard_bounds,
 )
-from ..runtime import span
+from ..runtime import forward_events, span
 from . import base
-from .steps import extract_patches, infer_output
+from .steps import StageEvents, extract_patches, infer_output
 from .wsi_handler import get_file_handler
 
 logger = logging.getLogger("hover_net_tpu_torch")
@@ -111,6 +111,12 @@ logger = logging.getLogger("hover_net_tpu_torch")
 # device pred buffer: at least one patch output, so that a patch that
 # straddles a stripe border lands whole in both neighbours' stripes
 _STRIPE_HALO = 256
+
+
+def _stripe_halo(out_sz: int) -> int:
+    """The landing rows for patch outputs of `out_sz`: `_STRIPE_HALO`, or
+    `out_sz` rounded up to 256 where that is more (CellViT's 960)."""
+    return max(_STRIPE_HALO, -(-out_sz // 256) * 256)
 
 
 def _warn_u16_overflow(n_labels):
@@ -198,6 +204,7 @@ class WSIInferManager(base.InferManagerBase):
     _slide_times = None
     _pred_dev_mode = False
     _pred_dev = None
+    _part_events = None
     n_forward_batches = 0
     n_window_batches = 0
     n_window_shards = 0
@@ -230,8 +237,11 @@ class WSIInferManager(base.InferManagerBase):
         # `inference` (of it `chunk_wait`), each `post_proc_phase{k}`
         # (of them `pp_extract` and `pp_callback`), `post_proc`, `save`,
         # and on the manager's first slide `model_build`; the device ms of
-        # the chunk loop's forward batches (`forward_ms`, CUDA only). And
-        # the forward and window batches of the last slide
+        # the chunk loop's forward batches (`forward_ms`, CUDA only), and
+        # for a model that times parts of its forward (`forward_parts`:
+        # CellViT's `vit_encoder`, `global_attn`, `window_attn`,
+        # `vit_decoder`) their device ms, summed over the forward batches.
+        # And the forward and window batches of the last slide
         self.mesh = (make_mesh(devices=self.devices)
                      if len(self.devices) > 1 else None)
         self.timings: Dict[str, Dict[str, float]] = {}
@@ -250,8 +260,16 @@ class WSIInferManager(base.InferManagerBase):
                      else torch.float32)
         patches = extract_patches(chunk_img, coords,
                                   self.cfg.patch_input_shape)
-        with torch.no_grad():
-            return infer_output(self.model_on(device), patches).to(out_dtype)
+        parts = None
+        if self._part_events is not None and device.type == "cuda":
+            parts = self._part_events.setdefault(device, StageEvents(device))
+        token = forward_events.set(parts)
+        try:
+            with torch.no_grad():
+                return infer_output(self.model_on(device),
+                                    patches).to(out_dtype)
+        finally:
+            forward_events.reset(token)
 
     def _run_chunk(self, chunk_img, patch_coords: np.ndarray,
                    out_coords: np.ndarray | None = None, events=None):
@@ -440,8 +458,7 @@ class WSIInferManager(base.InferManagerBase):
             self._pred_dev = torch.zeros((bh, bw, out_ch), dtype=dt,
                                          device=self.device)
         else:
-            halo = _STRIPE_HALO
-            assert halo >= out_sz, (halo, out_sz)
+            halo = _stripe_halo(out_sz)
             s_rows = -(-(-(-bh // len(self.mesh))) // 256) * 256
             self._stripe = (s_rows, halo)
             self._pred_dev = [torch.zeros((s_rows + 2 * halo, bw, out_ch),
@@ -456,9 +473,12 @@ class WSIInferManager(base.InferManagerBase):
         the main thread's wait for the prefetch thread's chunks
         (`chunk_wait`, span `hnt.wsi.chunk_wait`) and the forward
         batches' device ms (`forward_ms`, read once the loop has
-        synchronised)."""
+        synchronised) and, for a model with `forward_parts`, the device
+        ms of each part its forward batches time."""
         times = self._slide_times
         fwd_events = []
+        self._part_events = ({} if hasattr(self.model, "forward_parts")
+                             else None)
         write_q: "queue.Queue" = queue.Queue(maxsize=4)
 
         def writer():
@@ -529,6 +549,11 @@ class WSIInferManager(base.InferManagerBase):
             # done: synchronised above, or pulled by the writer thread
             times["forward_ms"] = sum(start.elapsed_time(end)
                                       for start, end in fwd_events)
+        if times is not None:
+            for parts in (self._part_events or {}).values():
+                for name, ms in parts.ms().items():
+                    times[name] = times.get(name, 0.0) + ms
+        self._part_events = None
 
     def _boxes_touch_tissue(self, scaled_boxes):
         """Tissue-overlap test of many boxes through a summed-area table

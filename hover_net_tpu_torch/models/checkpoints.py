@@ -177,14 +177,19 @@ def save_torch_tar(path: str, variables, cfg: HoVerNetConfig,
 
 
 def load_torch_tar(path: str) -> Dict[str, torch.Tensor]:
-    """State dict of a reference '.tar' ({'desc': state_dict}), with the
+    """State dict of a reference '.tar' ({'desc': state_dict}) or of
+    CellViT's '.pth' ({'model_state_dict': state_dict, ...}), with the
     DataParallel 'module.' prefix stripped."""
     return _desc(torch.load(path, map_location="cpu", weights_only=True))
 
 
 def _desc(payload) -> Dict[str, torch.Tensor]:
-    state = payload["desc"] if isinstance(payload, dict) and "desc" in \
-        payload else payload
+    state = payload
+    if isinstance(payload, dict):
+        for key in ("desc", "model_state_dict"):
+            if key in payload:
+                state = payload[key]
+                break
     return {(k[len("module."):] if k.startswith("module.") else k): v
             for k, v in state.items()}
 
@@ -294,9 +299,14 @@ def load_model_state(path: str, cfg: HoVerNetConfig
     """The state dict of a model checkpoint for `cfg`'s model, as the JAX
     managers pick the loader: a reference or trainer `.tar` (`.pth`,
     `.pt`), else the JAX package's msgpack (checked by
-    `check_variables`)."""
+    `check_variables`). A CellViT model (models/cellvit.py) reads a
+    `.pth` or `.tar` only."""
     if str(path).endswith((".tar", ".pth", ".pt")):
         return load_torch_tar(path)
+    if not isinstance(cfg, HoVerNetConfig):
+        raise ValueError(f"checkpoint {path}: a {cfg.mode} model loads a "
+                         f".pth or .tar; the JAX package's .msgpack holds "
+                         f"HoVer-Net only")
     variables, _ = load_checkpoint(path)
     check_variables(variables, cfg, path)
     return state_dict_from_jax(variables, cfg)

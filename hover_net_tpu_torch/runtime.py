@@ -12,16 +12,27 @@ into it. The managers' `timings` are filled this way, so one region
 carries one name in both. Span names are `hnt.<layer>.<what>`; spans
 open per tile, chunk, window batch, slide or step, never per patch or
 nucleus.
+
+`forward_events` holds the `infer.steps.StageEvents` of the forward that
+runs in this thread, if any: the forward and the model's layers add the
+device time of their parts to it (`StageEvents.part`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import time
 from typing import Optional
 
 import torch
 from torch.autograd.profiler import record_function
+
+# the StageEvents of the forward running in this thread (a context
+# variable: threads and calls never share it; `infer/steps.infer_output`
+# keeps its (model, imgs) signature for every caller)
+forward_events: contextvars.ContextVar = contextvars.ContextVar(
+    "hnt_forward_events", default=None)
 
 
 class span:

@@ -87,6 +87,31 @@ def test_source_imports_no_jax_package(path):
     assert forbidden_imports(path) == [], path
 
 
+def test_cellvit_module_is_checked():
+    assert "hover_net_tpu_torch/models/cellvit.py" in port_sources()
+
+
+def reference_sources():
+    """Every .py file of the benchmark's plain references."""
+    ref = os.path.join(REPO, "benchmark", "reference")
+    return sorted(os.path.relpath(os.path.join(ref, f), REPO)
+                  for f in os.listdir(ref) if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", reference_sources())
+def test_reference_imports_no_program(path):
+    """The benchmark's references (the CellViT one among them) import
+    nothing of the port, of jax or of the JAX package."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not [n for n in names if n.split(".")[0] in
+                ("hover_net_tpu_torch", "hover_net_tpu", "jax", "flax")], path
+
+
 def test_port_modules_import_without_jax():
     """A fresh interpreter (tests/conftest.py imports jax in this one)
     imports every module of the port and chip_smoke.py; neither jax nor
