@@ -1419,7 +1419,10 @@ def striped_slide_turns(tar, dirs, work, card, device, fused):
             raise AssertionError(f"mesh (b) {enc} {name}: no json written")
         with open(os.path.join(out, "slide.json")) as f:
             nuc = json.load(f)["nuc"]
-        res.append((name, nuc, np.array(mgr.wsi_inst_map),
+        # the single-device map is a tensor on the card, the mesh's a
+        # host memmap
+        res.append((name, nuc, np.array(torch.as_tensor(
+                        mgr.wsi_inst_map).cpu()),
                     mgr.n_forward_batches, preds[0]))
         log(f"mesh (b) {enc} {name}: {SLIDE}^2 slide in {wall:.3f} s wall, "
             f"{mgr.n_forward_batches} forward batches, "

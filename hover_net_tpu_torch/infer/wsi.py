@@ -16,7 +16,10 @@ Counterpart of hover_net_tpu/infer/wsi.py, with its structure:
   energy, the post-processing tail (kernel K1 on a GPU) and uint16 label
   compaction; a staging thread reads mmap windows ahead, `inflight`
   batches stay queued, a pool extracts instances, and the callbacks that
-  renumber and stitch run in order;
+  renumber and stitch run in order. Where the pred map is resident on one
+  device, the slide's instance map lives beside it and the callbacks'
+  whole-window passes run there on the tail's labels; the host keeps the
+  per-nucleus dict;
 - resume: a slide whose json exists is skipped.
 
 Several devices (`n_devices` > 1, or an explicit `devices` list of more
@@ -75,6 +78,7 @@ import shutil
 import threading
 import time
 from collections import deque
+from contextlib import nullcontext
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
@@ -89,8 +93,12 @@ from ..data.tiling import (
 )
 from ..metrics.stats import remap_label
 from ..ops import cc_np
-from ..ops.post_proc_device import compact_labels_u16, proc_np_hv_batch
-from ..ops.post_proc_host import extract_instance_info
+from ..ops.post_proc_device import (
+    compact_labels_u16,
+    proc_np_hv_batch,
+    remap_labels_u16,
+)
+from ..ops.post_proc_host import extract_instance_info, instance_info_lut
 from ..parallel.mesh import (
     Mesh,
     all_gather,
@@ -194,6 +202,30 @@ def _host_cat(pulls) -> np.ndarray:
     return np.concatenate([_host(p) for p in pulls], axis=0)
 
 
+def _id_table(ids: torch.Tensor, n: int, drop_min: bool = False):
+    """[n] bool: which of the ids 0..n-1 occur in `ids` (int64, each
+    below n); with `drop_min` the smallest that occurs left out, as
+    `np.unique(ids)[1:]` leaves it out. The callbacks' stand-in for
+    `np.unique`, `np.isin` and `np.setdiff1d`: fixed-size, no sort and no
+    host read."""
+    table = torch.zeros(n, dtype=torch.bool, device=ids.device)
+    table.index_fill_(0, ids, True)
+    if drop_min:
+        table.index_fill_(0, ids.min().reshape(1), False)
+    return table
+
+
+def _ids_to_host(*tables):
+    """`np.flatnonzero` of each bool table, through one copy to the
+    host."""
+    flat = _host(_to_host_async(torch.cat(tables)))
+    out, lo = [], 0
+    for t in tables:
+        out.append(np.flatnonzero(flat[lo:lo + len(t)]))
+        lo += len(t)
+    return out
+
+
 class WSIInferManager(base.InferManagerBase):
     # class-level defaults, so that instances built with __new__ (the
     # tests drive single methods) run on the CPU with the mmap pred map
@@ -205,6 +237,7 @@ class WSIInferManager(base.InferManagerBase):
     _pred_dev_mode = False
     _pred_dev = None
     _part_events = None
+    _cb_stream = None
     n_forward_batches = 0
     n_window_batches = 0
     n_window_shards = 0
@@ -240,8 +273,11 @@ class WSIInferManager(base.InferManagerBase):
         # the chunk loop's forward batches (`forward_ms`, CUDA only), and
         # for a model that times parts of its forward (`forward_parts`:
         # CellViT's `vit_encoder`, `global_attn`, `window_attn`,
-        # `vit_decoder`) their device ms, summed over the forward batches.
-        # And the forward and window batches of the last slide
+        # `vit_decoder`) their device ms, summed over the forward batches;
+        # the phase callbacks run on the device's instance map
+        # (`pp_callback_windows_dev`) or on a host map
+        # (`pp_callback_windows_host`). And the forward and window batches
+        # of the last slide
         self.mesh = (make_mesh(devices=self.devices)
                      if len(self.devices) > 1 else None)
         self.timings: Dict[str, Dict[str, float]] = {}
@@ -663,9 +699,13 @@ class WSIInferManager(base.InferManagerBase):
         batches = [(shape, idxs[i:i + batch])
                    for shape, idxs in groups.items()
                    for i in range(0, len(idxs), batch)]
+        # the callbacks take the windows' labels where the tail left them
+        # when the instance map lives on that device
+        dev_labels = (self._pred_dev_mode and self.mesh is None
+                      and isinstance(self.wsi_inst_map, torch.Tensor))
 
         def finalize(item):
-            idxs, inst_pulls, nlabs, geoms, tps, tp_pulls = item
+            idxs, inst_pulls, nlabs, geoms, tps, tp_pulls, crops = item
             with span("hnt.wsi.pp.extract", times, "pp_extract"):
                 _warn_u16_overflow(nlabs)
                 inst_host = _host_cat(inst_pulls)
@@ -678,16 +718,29 @@ class WSIInferManager(base.InferManagerBase):
                     y0, y1, x0, x1 = geoms[k]
                     inst = remap_label(
                         inst_host[k, y0:y1, x0:x1].astype(np.int32))
-                    return extract_instance_info(inst, tps[k])
+                    if crops is None:
+                        return extract_instance_info(inst, tps[k])
+                    return instance_info_lut(inst, tps[k])
 
                 if ext_pool is not None and len(idxs) > 1:
                     extracted = list(ext_pool.map(extract_one,
                                                   range(len(idxs))))
                 else:
                     extracted = [extract_one(k) for k in range(len(idxs))]
-            with span("hnt.wsi.pp.callback", times, "pp_callback"):
+            with span("hnt.wsi.pp.callback", times, "pp_callback"), \
+                    self._callback_stream(crops, inst_pulls):
                 for k, idx in enumerate(idxs):
-                    inst, inst_info = extracted[k]
+                    if crops is None:
+                        inst, inst_info = extracted[k]
+                    else:
+                        # the dict's ids: the renumbered crop, less the
+                        # instances the extraction dropped
+                        inst_info, lut = extracted[k]
+                        inst = crops[k]
+                        if lut is not None:
+                            inst = torch.as_tensor(
+                                lut, device=inst.device).index_select(
+                                    0, inst.reshape(-1)).view(inst.shape)
                     tl, br = boxes[idx]
                     callback(inst, inst_info, tl, br)
 
@@ -732,10 +785,17 @@ class WSIInferManager(base.InferManagerBase):
                 for wins, valids in shards:
                     self.n_window_shards += 1
                     outs.append(self._post_proc(wins, valids))
+            labs = [o[0].to(torch.int32) for o in outs]
+            crops = None
+            if dev_labels:
+                # each window's valid box renumbered as the host's
+                # `remap_label` renumbers it, left on the device
+                crops = [remap_labels_u16(labs[0][k, y0:y1, x0:x1])
+                         for k, (y0, y1, x0, x1) in enumerate(geoms)]
             # start the label pulls now; the host reads them `inflight`
             # batches later
-            return (sub, [_to_host_async(o[0].to(torch.int32)) for o in outs],
-                    [o[1] for o in outs], geoms, tps, tp_pulls)
+            return (sub, [_to_host_async(lab) for lab in labs],
+                    [o[1] for o in outs], geoms, tps, tp_pulls, crops)
 
         n_fin = getattr(self, "finalize_workers", 0) or min(
             8, os.cpu_count() or 1)
@@ -761,12 +821,33 @@ class WSIInferManager(base.InferManagerBase):
                         finalize(pending.pop(0))
             while pending:
                 finalize(pending.pop(0))
+            if self._cb_stream is not None:
+                # later work on the current stream (the next phase's map
+                # reads, a pull of the map) follows the callbacks' stores
+                torch.cuda.current_stream(self._cb_stream.device).wait_stream(
+                    self._cb_stream)
         finally:
             if ext_pool is not None:
                 ext_pool.shutdown(wait=True)
         secs = time.perf_counter() - start
         logger.info("%s: %d boxes in %.2fs", desc, boxes.shape[0], secs)
         return len(batches), secs
+
+    def _callback_stream(self, crops, inst_pulls):
+        """Where a window batch's callbacks run: for labels on a card, on a
+        stream of the manager's own that waits for this batch's label pull
+        (recorded behind its tail), so that a callback's read of ids waits
+        for the callbacks' work alone and not for the window batches
+        queued behind this one; elsewhere in place."""
+        if crops is None or not crops[0].is_cuda:
+            return nullcontext()
+        dev = crops[0].device
+        if self._cb_stream is None or self._cb_stream.device != dev:
+            self._cb_stream = torch.cuda.Stream(dev)
+        self._cb_stream.wait_event(inst_pulls[-1][1])
+        for crop in crops:
+            crop.record_stream(self._cb_stream)
+        return torch.cuda.stream(self._cb_stream)
 
     def post_process_phases(self):
         """The 3 phases over the slide's stitched prediction: full tiles,
@@ -847,9 +928,15 @@ class WSIInferManager(base.InferManagerBase):
                 self._pred_map_path, mode="w+",
                 shape=proc_shape + (out_ch,), dtype=self.pred_map_dtype)
             del pred_map
-        self.wsi_inst_map = np.lib.format.open_memmap(
-            f"{self.cache_path}/pred_inst.npy", mode="w+",
-            shape=proc_shape, dtype=np.int32)
+        self.wsi_inst_map = None  # the last slide's, freed first
+        if self._pred_dev_mode and self.mesh is None:
+            # beside the pred map: the callbacks stitch it on the device
+            self.wsi_inst_map = torch.zeros(proc_shape, dtype=torch.int32,
+                                            device=self.device)
+        else:
+            self.wsi_inst_map = np.lib.format.open_memmap(
+                f"{self.cache_path}/pred_inst.npy", mode="w+",
+                shape=proc_shape, dtype=np.int32)
         self.wsi_inst_info: Dict[int, dict] = {}
         times["prepare"] = time.perf_counter() - start
 
@@ -884,8 +971,29 @@ class WSIInferManager(base.InferManagerBase):
         self._pred_dev = None  # free device memory before the next slide
 
     # ---- phase callbacks (the reference's boundary bookkeeping)
+    #
+    # One implementation in torch ops over the instance map wherever it
+    # lives: a torch.int32 tensor on the device beside a resident pred map
+    # (`process_single_file`), else a numpy array or memmap on the host,
+    # seen through a zero-copy tensor. Every id of the map is a key of
+    # `wsi_inst_info` and every id of a window's labels a key of its
+    # `inst_info`, so tables over 0..max key stand for np.unique, np.isin
+    # and np.setdiff1d. The host keeps the dict: the ids, the offsets of
+    # bbox, contour and centroid, the installs and the pops.
+
+    def _callback_map(self) -> torch.Tensor:
+        """The instance map as a tensor; counts the callback into the
+        slide's `pp_callback_windows_dev` or `pp_callback_windows_host`."""
+        inst_map = self.wsi_inst_map
+        on_dev = isinstance(inst_map, torch.Tensor)
+        times = self._slide_times
+        if times is not None:
+            key = f"pp_callback_windows_{'dev' if on_dev else 'host'}"
+            times[key] = times.get(key, 0) + 1
+        return inst_map if on_dev else torch.from_numpy(inst_map)
 
     def _cb_normal_tile(self, pred_inst, inst_info, tl, br):
+        inst_map = self._callback_map()
         if len(inst_info) == 0:
             return
         top_left = np.array([tl[1], tl[0]])  # (x, y)
@@ -895,34 +1003,42 @@ class WSIInferManager(base.InferManagerBase):
             info["contour"] += top_left
             info["centroid"] += top_left
             self.wsi_inst_info[inst_id + wsi_max_id] = info
-        pred_inst = np.where(pred_inst > 0, pred_inst + wsi_max_id, 0)
-        self.wsi_inst_map[tl[0]:br[0], tl[1]:br[1]] = pred_inst
+        pred = torch.as_tensor(pred_inst, device=inst_map.device)
+        inst_map[tl[0]:br[0], tl[1]:br[1]] = torch.where(
+            pred > 0, pred + int(wsi_max_id), 0)
 
     def _cb_fixing_tile(self, pred_inst, inst_info, tl, br):
+        inst_map = self._callback_map()
         if len(inst_info) == 0:
             return
         top_left = np.array([tl[1], tl[0]])
         wsi_max_id = max(self.wsi_inst_info.keys(), default=0)
+        n_old, n_new = int(wsi_max_id) + 1, int(max(inst_info)) + 1
+        win = inst_map[tl[0]:br[0], tl[1]:br[1]]
+        roi = win.reshape(-1).long()
+        pred = torch.as_tensor(pred_inst, device=win.device).reshape(-1).long()
 
         # keep old nuclei that straddle this window's boundary; drop the
-        # interior ones (the re-prediction replaces them)
-        roi = np.array(self.wsi_inst_map[tl[0]:br[0], tl[1]:br[1]])
-        edge_ids = np.unique(np.concatenate([
-            roi[[0, -1], :].ravel(), roi[:, [0, -1]].ravel()]))
-        edge_ids = edge_ids[edge_ids > 0]
-        inner_ids = np.setdiff1d(np.unique(roi)[1:], edge_ids,
-                                 assume_unique=True)
-        roi[np.isin(roi, inner_ids)] = 0
-        self.wsi_inst_map[tl[0]:br[0], tl[1]:br[1]] = roi
-        for inst_id in inner_ids:
-            self.wsi_inst_info.pop(int(inst_id), None)
+        # interior ones (the re-prediction replaces them). 0 is never
+        # inner: it is the smallest id wherever it occurs
+        edge = _id_table(torch.cat([win[[0, -1], :].reshape(-1),
+                                    win[:, [0, -1]].reshape(-1)]).long(),
+                         n_old)
+        inner = _id_table(roi, n_old, drop_min=True) & ~edge
+        roi = torch.where(inner[roi], 0, roi)
 
         # from the new prediction, drop nuclei overlapping the kept old
-        # boundary-straddlers; install the rest
-        overlap_ids = np.unique(pred_inst[roi > 0])
-        new_inner = np.setdiff1d(np.unique(pred_inst)[1:], overlap_ids,
-                                 assume_unique=True)
-        pred_inst = np.where(np.isin(pred_inst, overlap_ids), 0, pred_inst)
+        # boundary-straddlers; install the rest (an overlap table that
+        # holds 0 drops and installs nothing more)
+        overlap = _id_table(torch.where(roi > 0, pred, 0), n_new)
+        new_inner = _id_table(pred, n_new, drop_min=True) & ~overlap
+        pred = torch.where(overlap[pred], 0, pred)
+        pred = torch.where(pred > 0, pred + int(wsi_max_id), 0)
+        win.copy_((roi + pred).view(win.shape))
+
+        inner_ids, new_inner = _ids_to_host(inner, new_inner)
+        for inst_id in inner_ids:
+            self.wsi_inst_info.pop(int(inst_id), None)
         for inst_id in new_inner:
             if inst_id not in inst_info:
                 logger.info("nucleus id=%d missing from info dict", inst_id)
@@ -932,8 +1048,6 @@ class WSIInferManager(base.InferManagerBase):
             info["contour"] += top_left
             info["centroid"] += top_left
             self.wsi_inst_info[int(inst_id) + wsi_max_id] = info
-        pred_inst = np.where(pred_inst > 0, pred_inst + wsi_max_id, 0)
-        self.wsi_inst_map[tl[0]:br[0], tl[1]:br[1]] = roi + pred_inst
 
     # -------------------------------------------------------------- run
 

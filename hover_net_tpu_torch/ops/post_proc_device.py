@@ -248,6 +248,19 @@ def compact_labels_u16(inst: torch.Tensor):
             ranks[:, -1].contiguous())
 
 
+def remap_labels_u16(lab: torch.Tensor) -> torch.Tensor:
+    """Labels [H, W] of ids below 65536 (a crop of `compact_labels_u16`'s,
+    in any integer dtype) -> int32 ids renumbered 1..n in ascending order,
+    0 kept: `metrics.stats.remap_label` on the device, from a presence
+    table and its running count, with no sort and no host read."""
+    flat = lab.reshape(-1).long()
+    seen = torch.zeros(1 << 16, dtype=torch.int32, device=lab.device)
+    seen.index_fill_(0, flat, 1)
+    seen[0] = 0
+    rank = torch.cumsum(seen, 0, dtype=torch.int32)
+    return rank.index_select(0, flat).view(lab.shape)
+
+
 # 8-neighbour directions (E, NE, N, NW, W, SW, S, SE): the bit order of
 # the native COO contour tracer (csrc/instance_table.cpp)
 _DIRS8 = ((0, 1), (-1, 1), (-1, 0), (-1, -1),

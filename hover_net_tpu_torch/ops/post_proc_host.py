@@ -106,6 +106,19 @@ def extract_instance_info(pred_inst, pred_type=None, n_types: int = 16):
     Requires contiguous instance ids 1..N (remap first).
     """
     pred_inst = np.ascontiguousarray(pred_inst, np.int32)
+    inst_info, lut = instance_info_lut(pred_inst, pred_type, n_types)
+    if lut is not None:
+        pred_inst = apply_lut(pred_inst.copy(), lut)
+    return pred_inst, inst_info
+
+
+def instance_info_lut(pred_inst, pred_type=None, n_types: int = 16):
+    """`extract_instance_info` without the map: (inst_info, lut), where
+    `lut` (int32, one entry an id of `pred_inst` and 0) renumbers the map
+    as the dict is keyed, or is None where every instance was kept. For a
+    caller that holds the map elsewhere (the WSI manager's labels on the
+    device). `pred_inst`: ids 1..N."""
+    pred_inst = np.ascontiguousarray(pred_inst, np.int32)
     bbox_t, centroid_t, size_t, hist_t = instance_table(
         pred_inst, pred_type, n_types=n_types
     )
@@ -143,10 +156,8 @@ def extract_instance_info(pred_inst, pred_type=None, n_types: int = 16):
         lut = np.zeros(bbox_t.shape[0] + 1, np.int32)
         keep = sorted(inst_info)
         lut[keep] = np.arange(1, len(keep) + 1, dtype=np.int32)
-        pred_inst = apply_lut(pred_inst.copy(), lut)
-        inst_info = {int(lut[k]): inst_info[k] for k in keep}
-
-    return pred_inst, inst_info
+        return {int(lut[k]): inst_info[k] for k in keep}, lut
+    return inst_info, None
 
 
 def assemble_instance_info(bbox_t, centroid_t, size_t, hist_t, contours,

@@ -160,6 +160,187 @@ def test_finalize_pool_matches_sequential(tmp_path):
     assert_same(three, one)
 
 
+# ------------------------------------------- the instance map on the device
+
+def count_calls(monkeypatch, name):
+    """Wrap `port_wsi.<name>`; returns the list its calls append to."""
+    calls = []
+    fn = getattr(port_wsi, name)
+
+    def counted(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append(out)
+        return out
+
+    monkeypatch.setattr(port_wsi, name, counted)
+    return calls
+
+
+def three_phases_counted(mgr, inst_map):
+    """`three_phases` with `inst_map` preset and the slide's timings on:
+    (map, info, the callbacks' counter keys)."""
+    mgr.wsi_inst_map = inst_map
+    mgr._slide_times = {}
+    got = three_phases(mgr)
+    return got, {k: v for k, v in mgr._slide_times.items()
+                 if k.startswith("pp_callback_windows")}
+
+
+@pytest.mark.parametrize("dev_mode", [True, False], ids=["device", "mmap"])
+@pytest.mark.parametrize("nr_types", [None, 4], ids=["untyped", "typed"])
+def test_three_phases_torch_map_equals_numpy_map(tmp_path, monkeypatch,
+                                                 dev_mode, nr_types):
+    """The callbacks on a torch.int32 instance map (as `process_single_file`
+    allocates it beside a resident pred map) against the same run on a
+    numpy map: the same map and the same dict, id for id. With a resident
+    pred map the torch map's callbacks take the tail's labels renumbered
+    on the device (`remap_labels_u16`, once a window); every callback
+    counts as `_dev` on the torch map and as `_host` on the numpy one."""
+    pred = pred_map(SHAPE, 5, 100, nr_types)
+    shape = pred.shape[:2]
+    renumbered = count_calls(monkeypatch, "remap_labels_u16")
+    want, host_count = three_phases_counted(
+        manager(PortWSI, pred, tmp_path, "np", dev_mode, nr_types),
+        np.zeros(shape, np.int32))
+    assert not renumbered
+    got, dev_count = three_phases_counted(
+        manager(PortWSI, pred, tmp_path, "torch", dev_mode, nr_types),
+        torch.zeros(shape, dtype=torch.int32))
+    assert len(want[1]) > 50
+    assert_same(got, want)
+    n = host_count["pp_callback_windows_host"]
+    assert host_count == {"pp_callback_windows_host": n} and n > 10
+    assert dev_count == {"pp_callback_windows_dev": n}
+    assert len(renumbered) == (n if dev_mode else 0)
+
+
+def test_device_labels_apply_the_extractions_dropped_ids(tmp_path,
+                                                         monkeypatch):
+    """Windows whose labels hold one-pixel instances, which the extraction
+    drops (a contour of fewer than 3 points) and renumbers the rest: on
+    the device path the callbacks take the dict's ids through the
+    extraction's lookup table, and the map and dict equal the host
+    path's."""
+    pred = pred_map(SHAPE, 9, 90, 4)
+    real = PortWSI._post_proc
+
+    def with_dots(self, seg, valid):
+        inst, nlab = real(self, seg, valid)
+        lab = inst.to(torch.int32)
+        for b in range(lab.shape[0]):
+            free = (lab[b] == 0) & valid[b]
+            ys, xs = torch.nonzero(free, as_tuple=True)
+            pick = torch.arange(0, len(ys), 997)[:40]
+            lab[b, ys[pick], xs[pick]] = (int(nlab[b]) + 1
+                                          + torch.arange(len(pick),
+                                                         dtype=torch.int32))
+        return lab.to(torch.uint16), nlab + 40
+
+    monkeypatch.setattr(PortWSI, "_post_proc", with_dots)
+    luts = count_calls(monkeypatch, "instance_info_lut")
+    want, _ = three_phases_counted(
+        manager(PortWSI, pred, tmp_path, "np", True, 4),
+        np.zeros(SHAPE, np.int32))
+    got, _ = three_phases_counted(
+        manager(PortWSI, pred, tmp_path, "torch", True, 4),
+        torch.zeros(SHAPE, dtype=torch.int32))
+    assert sum(lut is not None for _, lut in luts) > 10
+    assert_same(got, want)
+    assert set(np.unique(got[0]).tolist()) - {0} == set(got[1])
+
+
+def border_case():
+    """A fixing window (rows 10:40, cols 20:60 of a 50 x 80 map) over an
+    old map holding: id 3 straddling its top border, id 5 inside it, id 7
+    outside it, id 8 on its left column; and new labels holding id 1 over
+    the straddler's inner part, id 2 clear of every old nucleus, id 3
+    over the dropped interior nucleus, id 4 over part of id 8."""
+    old = np.zeros((50, 80), np.int32)
+    old[5:15, 30:36] = 3
+    old[20:26, 40:46] = 5
+    old[2:6, 70:76] = 7
+    old[25:30, 18:22] = 8
+    new = np.zeros((30, 40), np.int32)
+    new[3:7, 9:17] = 1  # the straddler covers rows 10:15 -> window 0:5
+    new[20:25, 30:36] = 2
+    new[9:17, 19:27] = 3
+    new[15:21, 0:6] = 4  # id 8 covers window cols 0:2 of rows 15:20
+    info_old = {k: {"bbox": np.zeros((2, 2), np.int64),
+                    "contour": np.zeros((4, 2), np.int64),
+                    "centroid": np.zeros(2), "type": None,
+                    "type_prob": None} for k in (3, 5, 7, 8)}
+    return old, new, info_old
+
+
+def run_fixing(cls, inst_map, new, info_old, as_tensor=False):
+    import copy
+
+    mgr = cls.__new__(cls)
+    mgr.wsi_inst_map = inst_map
+    mgr.wsi_inst_info = copy.deepcopy(info_old)
+    info_new = {k: {"bbox": np.array([[k, k], [k + 1, k + 1]]),
+                    "contour": np.full((4, 2), k), "centroid":
+                    np.array([k, k], np.float64), "type": None,
+                    "type_prob": None} for k in (1, 2, 3, 4)}
+    pred = torch.from_numpy(new) if as_tensor else new
+    mgr._cb_fixing_tile(pred, info_new, np.array([10, 20]),
+                        np.array([40, 60]))
+    return np.array(mgr.wsi_inst_map), mgr.wsi_inst_info
+
+
+@pytest.mark.parametrize("kind", ["torch_map", "numpy_map"])
+def test_fixing_window_with_nuclei_on_its_border(kind):
+    """The fixing callback on a window whose old map has nuclei on its
+    border: the straddlers (3 across the top row, 8 on the left column)
+    stay, the interior nucleus (5) goes from the map and the dict, the
+    nucleus outside (7) is untouched; of the new labels those overlapping
+    a kept straddler (1 and 4) are dropped, and the others (2, and 3 over
+    the dropped interior) are installed above the old maximum id. The
+    port on a torch map (labels as a tensor) and on a numpy map equals
+    the JAX manager's numpy callback."""
+    old, new, info_old = border_case()
+    want_map, want_info = run_fixing(JaxWSI, old.copy(), new, info_old)
+    if kind == "torch_map":
+        got = run_fixing(PortWSI, torch.from_numpy(old.copy()), new,
+                         info_old, as_tensor=True)
+    else:
+        got = run_fixing(PortWSI, old.copy(), new, info_old)
+    assert_same(got, (want_map, want_info))
+    assert list(want_info) == [3, 7, 8, 10, 11]
+    assert (want_map == 3).sum() == (old == 3).sum()
+    assert not (want_map == 5).any() and (want_map == 7).sum() == 24
+    assert (want_map[10:40, 20:60] == 10).sum() == (new == 2).sum()
+    assert (want_map[10:40, 20:60] == 11).sum() == (new == 3).sum()
+    np.testing.assert_array_equal(want_info[10]["bbox"], [[12, 22], [13, 23]])
+
+
+def test_device_renumbering_equals_remap_label():
+    """`remap_labels_u16` of a cropped window of compacted labels equals
+    `remap_label` of the same crop on the host: the crop loses some ids,
+    so the ids it keeps have gaps; an empty crop stays 0."""
+    from hover_net_tpu.metrics.stats import remap_label as jax_remap
+    from hover_net_tpu_torch.metrics.stats import remap_label
+    from hover_net_tpu_torch.ops.post_proc_device import (
+        compact_labels_u16, proc_np_hv_batch, remap_labels_u16)
+
+    pred = pred_map((300, 260), 3, 60)
+    inst, n = compact_labels_u16(proc_np_hv_batch(
+        torch.from_numpy(pred.astype(np.float32))[None]))
+    lab = inst.to(torch.int32)[0]
+    assert int(n[0]) > 30
+    for y0, y1, x0, x1 in ((37, 251, 13, 190), (0, 300, 0, 260),
+                           (100, 101, 50, 52)):
+        crop = lab[y0:y1, x0:x1]
+        want = remap_label(crop.numpy())
+        got = remap_labels_u16(crop)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(want, jax_remap(crop.numpy()))
+    assert int(remap_label(lab[37:251, 13:190].numpy()).max()) < int(n[0])
+    empty = torch.zeros((5, 7), dtype=torch.int32)
+    assert not remap_labels_u16(empty).any()
+
+
 def test_scatter_clamps_the_dustbin_like_jax():
     """Patch outputs written at a coordinate past the buffer (the JAX
     padded-batch "dustbin") clamp into the bottom-right slack exactly as
