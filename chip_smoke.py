@@ -94,10 +94,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (a random net's float32 gradient is chaotic). Prints each phase's ms
    per step, its per-step rate and loader wait share, patches/s over the
    phase's whole run, the peak device memory and the TF32 setting, and
-   the phase's own seconds by part (cli/train_step_split splits a step
-   by kernel group);
+   the phase's own seconds by part;
 12. evaluation as a user runs it: the typed checkpoint of
-   cli/bench.train_e2e_checkpoint(nr_types=5) (400 seeded steps at batch
+   cli/recipe.train_e2e_checkpoint(nr_types=5) (400 seeded steps at batch
    8 on deterministic algorithms, the same every run; its sha256
    printed) through
    cli/run_infer on four held-out 1000^2 CoNSeP-style images (fast,
@@ -163,18 +162,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    patches/s beside the card line: two ranks sharing one card, not a
    scaling number; each spawn of ranks logs every rank's timeline (up,
    device bound, group joined, first step, returned, exited);
-15. the measurement entry points at full width (w64, bf16), each through
-   its main(argv), each printing its JSON line: the untyped recipe
-   checkpoint (trained in a process of its own from the start of phase
-   11 to the end of phase 12, its sha256 printed beside the recorded
-   one, as phase 12's typed one is), cli/bench at its defaults
-   (tiles/s of the json pipeline, device ms per stage, MFU, the proxy,
-   one typed tile; the forward's ms and the tiles/s beside their record
-   from before the BatchNorms were float32),
-   cli/bench_wsi on phase
-   7's 4096^2 size with cuDNN (`steps.standard_encoder()`) and with K3,
-   the default (K1 once per
-   window batch, K3 4 times per forward batch or never),
+15. the probes and correctness sweeps at full width (w64, bf16), each
+   through its main(argv), each printing its JSON line: the untyped
+   recipe checkpoint (trained in a process of its own from the start of
+   phase 11 to the end of phase 12, its sha256 printed beside the
+   recorded one, as phase 12's typed one is),
    cli/bench_train at batch 16 and 4 (float32 parameters, bf16 body),
    cli/probe_device_time --split forward (stages, prefix cuts, kernel
    time by layer group with cuDNN and with K3),
@@ -1778,9 +1770,9 @@ AJI_FLOOR = 0.93    # the JAX package's composed parity floor, device vs host
 # BatchNorms to bf16 (runs of this script on an NVIDIA H100 80GB HBM3 at
 # 700.00 W, PERF.md §6): AJI (mean, min) of each drift pair of phase 12
 # (typed, 4 images) and of cli/fused_encoder_drift in phase 15 (untyped,
-# 4 tiles), min None where it was not recorded; cli/bench's forward and
-# tiles/s; the recipe checkpoints' sha256 (training is float32, which
-# the BatchNorm dtype rule leaves alone, so they should not change)
+# 4 tiles), min None where it was not recorded; the recipe checkpoints'
+# sha256 (training is float32, which the BatchNorm dtype rule leaves
+# alone, so they should not change)
 BN_BF16_DRIFT = {
     "typed": {"fused_vs_standard": (0.94195, 0.92402),
               "floor_standard_vs_float32": (0.86615, 0.77386),
@@ -1789,7 +1781,6 @@ BN_BF16_DRIFT = {
                 "floor_standard_vs_float32": (0.96908, 0.95875),
                 "fused_vs_float32": (0.967, None)},
 }
-BN_BF16_BENCH = {"forward_ms": "115.4-116.6", "tiles_per_s": "6.892-7.429"}
 RECIPE_SHA256 = {"typed": "468ba087", "untyped": "2a69ddd3"}
 
 
@@ -1800,7 +1791,7 @@ def log_beside_record(what, mean, low, record, card):
 
 
 class UntypedRecipe:
-    """Phase 15's untyped recipe checkpoint (`cli/bench.
+    """Phase 15's untyped recipe checkpoint (`cli/recipe.
     train_e2e_checkpoint()`, cached under build/, where phase 15 reads it
     and checks its sha256), trained in a process of its own from the
     start of phase 11 to the end of phase 12: phase 11 spends half its
@@ -1811,11 +1802,11 @@ class UntypedRecipe:
     def __init__(self):
         import multiprocessing
 
-        from hover_net_tpu_torch.cli import bench
+        from hover_net_tpu_torch.cli import recipe
 
         self.t0 = time.perf_counter()
         self.proc = multiprocessing.get_context("spawn").Process(
-            target=bench.train_e2e_checkpoint, name="untyped-recipe")
+            target=recipe.train_e2e_checkpoint, name="untyped-recipe")
         self.proc.start()
 
     def join(self):
@@ -1829,9 +1820,9 @@ class UntypedRecipe:
 
 
 def log_sha256(what, path, secs, recorded_prefix):
-    from hover_net_tpu_torch.cli import bench
+    from hover_net_tpu_torch.cli import recipe
 
-    sha = bench.checkpoint_sha256(path)
+    sha = recipe.checkpoint_sha256(path)
     same = ("the same as" if sha.startswith(recorded_prefix)
             else "differs from")
     log(f"{what} in {secs:.1f} s: sha256 {sha}, {same} the recorded "
@@ -2280,13 +2271,12 @@ def check_multi_device_training(work, card, device="cuda:0",
     log(f"phase 14 in {time.perf_counter() - t_start:.1f} s")
 
 
-# ------------------------------------------------ measurement entry points
+# ------------------------------------- probes and correctness sweeps
 
 def check_measurement(work, card, parts=lambda name, secs: None):
-    """Phase 15: the measurement CLIs at full width (w64, bf16), each
-    through its main(argv), which prints its JSON line: the untyped
-    recipe checkpoint (cached after its first run), cli.bench at its
-    defaults, cli.bench_wsi on phase 7's size with cuDNN and with K3,
+    """Phase 15: the probes and correctness sweeps at full width (w64,
+    bf16), each through its main(argv), which prints its JSON line: the
+    untyped recipe checkpoint (cached after its first run),
     cli.bench_train at batch 16 and 4, cli.probe_device_time --split
     forward, cli.fused_encoder_drift and cli.parity_drift_sweep. Checks
     each line and returns the launches of K1 and K3 over the phase;
@@ -2294,12 +2284,11 @@ def check_measurement(work, card, parts=lambda name, secs: None):
     import torch
 
     from hover_net_tpu_torch.cli import (
-        bench,
         bench_train,
-        bench_wsi,
         fused_encoder_drift,
         parity_drift_sweep,
         probe_device_time,
+        recipe,
     )
     from hover_net_tpu_torch.infer.steps import standard_encoder
     from hover_net_tpu_torch.ops.fused_block_cuda import fused_block_apply
@@ -2307,66 +2296,33 @@ def check_measurement(work, card, parts=lambda name, secs: None):
 
     root = os.path.join(work, "measure")
     t_start = t0 = time.perf_counter()
-    ckpt = bench.train_e2e_checkpoint()
+    ckpt = recipe.train_e2e_checkpoint()
     parts("15 recipe", time.perf_counter() - t0)
     log_sha256(f"untyped recipe checkpoint {os.path.relpath(ckpt, ROOT)}",
                ckpt, time.perf_counter() - t0, RECIPE_SHA256["untyped"])
-    wsi = ["--size", str(SLIDE), "--chunk_shape", "2048", "--workdir",
-           os.path.join(root, "wsi")]
-    runs = [  # (name, main, argv, the default encoder: K3 on the card)
-        ("bench", bench.main, ["--work_dir", os.path.join(root, "bench")],
-         False),
-        ("bench_wsi (cuDNN)", bench_wsi.main, wsi, False),
-        ("bench_wsi (K3)", bench_wsi.main, wsi, True),
+    # (name, main, argv), run under the standard cuDNN encoder; the probe's
+    # fused window and fused_encoder_drift's fused passes choose K3
+    runs = [
         ("bench_train batch 16", bench_train.main,
-         ["--steps", "30", "--batch", "16"], False),
+         ["--steps", "30", "--batch", "16"]),
         ("bench_train batch 4", bench_train.main,
-         ["--steps", "30", "--batch", "4"], False),
+         ["--steps", "30", "--batch", "4"]),
         ("probe_device_time --split forward", probe_device_time.main,
-         ["--split", "forward"], False),
-        ("fused_encoder_drift", fused_encoder_drift.main, ["--n", "4"],
-         False),
+         ["--split", "forward"]),
+        ("fused_encoder_drift", fused_encoder_drift.main, ["--n", "4"]),
         ("parity_drift_sweep", parity_drift_sweep.main,
-         ["--n", "4", "--csv", os.path.join(root, "parity.csv")], False),
+         ["--n", "4", "--csv", os.path.join(root, "parity.csv")]),
     ]
     proc_tail.launches = fused_block_apply.launches = 0
     res, secs = {}, {}
-    for name, main_fn, argv, fused in runs:
+    for name, main_fn, argv in runs:
         t0 = time.perf_counter()
-        with standard_encoder(not fused):
+        with standard_encoder():
             res[name] = main_fn(argv)
         secs[name] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     k1, k3 = proc_tail.launches, fused_block_apply.launches
 
-    b = res["bench"]
-    log(f"bench: {b['value']:.3f} tiles/s (median of 5; best "
-        f"{b['e2e_real_content_best']:.3f}), {b['e2e_n_instances']} nuclei "
-        f"a tile, multi-image {b['e2e_multi_image']:.3f}, proxy "
-        f"{b['proxy_1kx1k_tiles_per_sec']:.3f} tiles/s; device "
-        f"{b['device_ms_per_tile']:.3f} ms a tile ("
-        + ", ".join(f"{k} {v:.3f}" for k, v in b["device_stage_ms"].items())
-        + f"), MFU {b['pipeline_mfu_pct']:.2f} %; typed tile "
-        f"{b['typed_tile']['wall_ms']:.3f} ms ({card})")
-    if b["e2e_n_instances"] < 100 or not b["device_ms_per_tile"]:
-        raise AssertionError("bench: too few nuclei or no device time")
-    log(f"bf16 tile forward (BatchNorm in float32): "
-        f"{b['device_stage_ms']['forward']:.3f} ms a tile, {b['value']:.3f} "
-        f"tiles/s ({card}); recorded with the BatchNorms in bf16: forward "
-        f"{BN_BF16_BENCH['forward_ms']} ms, "
-        f"{BN_BF16_BENCH['tiles_per_s']} tiles/s (NVIDIA H100 80GB HBM3, "
-        f"700.00 W)")
-    for name, fused in (("bench_wsi (cuDNN)", False), ("bench_wsi (K3)", True)):
-        w = res[name]
-        log(f"{name}: {w['value']:.3f} Mpx/s, {w['wall_s']:.3f} s, "
-            f"{w['n_nuclei']} nuclei, {w['n_forward_batches']} forward and "
-            f"{w['n_window_batches']} window batches, K1 {w['k1_launches']}, "
-            f"K3 {w['k3_launches']}; " + ", ".join(
-                f"{k} {v:.3f}" for k, v in w["timings"].items()))
-        want_k3 = 4 * w["n_forward_batches"] if fused else 0
-        if w["k1_launches"] != w["n_window_batches"] or w["k1_launches"] == 0 \
-                or w["k3_launches"] != want_k3 or w["n_nuclei"] < 1000:
-            raise AssertionError(f"{name}: launches or nuclei off")
     for batch in (16, 4):
         t = res[f"bench_train batch {batch}"]
         log(f"bench_train batch {batch}: {t['ms_per_step']:.3f} ms a step, "
@@ -2519,7 +2475,7 @@ def orig_eval(work, tar, width, device):
     import io
 
     from hover_net_tpu_torch.cli import eval_consep
-    from hover_net_tpu_torch.cli.bench import forward_flops
+    from hover_net_tpu_torch.cli.probe_device_time import forward_flops
     from hover_net_tpu_torch.infer import steps
     from hover_net_tpu_torch.ops import post_proc_cuda as k1
 
@@ -2773,7 +2729,7 @@ def resume_from(root, phase_dir, patches, device):
     phase: all parameters, batch 4, RESUME_EPOCHS epochs of one step)
     whose log dir is `phase_dir`, under deterministic algorithms. Returns
     (the RunInfo, its seconds)."""
-    from hover_net_tpu_torch.cli import bench, run_train
+    from hover_net_tpu_torch.cli import recipe, run_train
 
     cfg_path = os.path.join(root, os.path.basename(phase_dir) + ".py")
     with open(cfg_path, "w") as f:
@@ -2786,7 +2742,7 @@ def resume_from(root, phase_dir, patches, device):
             f"batch_size={{'train': 4, 'valid': 2}}, "
             f"nr_epochs={RESUME_EPOCHS})])\n")
     t0 = time.perf_counter()
-    with bench.deterministic_training():
+    with recipe.deterministic_training():
         infos = run_train.main(["--config", cfg_path, "--device", device,
                                 "--resume"])
     return infos[0], time.perf_counter() - t0
@@ -3030,12 +2986,12 @@ def main():
     train_tar = check_training(work)
     torch.cuda.empty_cache()
     lap("11")
-    from hover_net_tpu_torch.cli import bench
+    from hover_net_tpu_torch.cli import recipe
 
     t0 = time.perf_counter()
-    eval_tar = bench.train_e2e_checkpoint(nr_types=5)
+    eval_tar = recipe.train_e2e_checkpoint(nr_types=5)
     lap.part("12 recipe", time.perf_counter() - t0)
-    log_sha256("phase 12 checkpoint (the typed recipe of cli/bench.py)",
+    log_sha256("phase 12 checkpoint (the typed recipe of cli/recipe.py)",
                eval_tar, time.perf_counter() - t0, RECIPE_SHA256["typed"])
     check_evaluation(work, eval_tar)
     torch.cuda.empty_cache()

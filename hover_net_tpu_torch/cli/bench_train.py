@@ -43,7 +43,7 @@ from ..parallel.train_parallel import (
     make_optimizer,
     make_train_step,
 )
-from .bench import BENCH_DIR, card_line, synth_nuclei_image
+from .recipe import BENCH_DIR, card_line, synth_nuclei_image
 
 
 def bf16_trainer(width: int, device, seed: int = 0):

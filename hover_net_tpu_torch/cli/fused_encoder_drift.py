@@ -5,7 +5,7 @@ Counterpart of scripts/fused_encoder_drift.py. The parity sweep
 (cli/parity_drift_sweep.py) post-processes one forward's output two ways,
 so an encoder change cancels out of it; this isolates the encoder. The
 same tile runs through the tile CLI's pipeline (`TileInferManager`, fast,
-the trained checkpoint of cli/bench.py) with the bf16 standard encoder
+the recipe checkpoint of cli/recipe.py) with the bf16 standard encoder
 (cuDNN, `steps.standard_encoder()`) and with the default one
 (`models/encoder_fused.fused_encode`: d0..d2 as K3, BatchNorm folded into
 scale and offset pairs); both stitched maps go through the same
@@ -46,7 +46,7 @@ import torch
 from ..infer.base import resolve_device
 from ..infer.steps import standard_encoder
 from ..ops.fused_block_cuda import fused_block_apply
-from .bench import (
+from .recipe import (
     add_common_args,
     card_line,
     checkpoint_sha256,

@@ -4,7 +4,7 @@ checkpoint tiles, on one CUDA card.
 Counterpart of scripts/parity_drift_sweep.py. N synthetic nuclei tiles
 (`synth_nuclei_image` of 200..2400 nuclei, seeds from rng 2024) each run
 through ONE forward of the tile pipeline (fast, bf16, the trained
-checkpoint of cli/bench.py), and the stitched prediction map is
+checkpoint of cli/recipe.py), and the stitched prediction map is
 post-processed twice:
 
   (a) by the host oracle, `ops/post_proc_host.proc_np_hv` (cv2, scipy and
@@ -37,7 +37,7 @@ import torch
 from ..infer.base import resolve_device
 from ..metrics.stats import get_fast_aji, remap_label
 from ..ops.post_proc_host import proc_np_hv
-from .bench import (
+from .recipe import (
     BENCH_DIR,
     add_common_args,
     card_line,

@@ -20,7 +20,7 @@ lax.scan K-deltas:
 - forward: patch gather, forward (`forward_batches` at `--batch`, as the
   tile pipeline runs it) and stitch; its FLOPs (FlopCounterMode) and MFU
   against the H100's 989 TFLOP/s dense bf16 peak;
-- post_proc: the masked Sobel energy and K1 on bench's synthetic
+- post_proc: the masked Sobel energy and K1 on bench.py's synthetic
   prediction map over the canvas (the source's valid mask); prep: the
   energy alone (K1 is about post_proc - prep);
 - compact: the uint16 compaction of K1's labels; tables: the compaction
@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import statistics
 import time
@@ -54,6 +55,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..data.tiling import bucket_grid_dim, prepare_tile_patching
 from ..infer.base import resolve_device
 from ..infer.steps import (
     assemble_grid,
@@ -70,17 +72,54 @@ from ..ops.post_proc_device import (
     proc_np_hv_batch,
 )
 from ..utils.crops import crop_op
-from .bench import (
-    BF16_PEAK_FLOPS,
-    canonical_grid,
-    card_line,
-    fill_synthetic,
-    forward_flops,
-    synth_pred_map,
-)
+from .recipe import card_line, synth_pred_map
 
+# dense bf16 tensor-core peak of one H100 SXM (NVIDIA data sheet): the
+# peak of PERF.md's kernel bounds
+BF16_PEAK_FLOPS = 989e12
 CUTS = ("d0", "enc", "dec1", "full")
 K3_KERNEL = "conv_gemm"
+
+
+def fill_synthetic(model: HoVerNet) -> HoVerNet:
+    """bench.py's timing weights: BN scales and running variances 1, every
+    other parameter and buffer 0.01 (the values do not change the work)."""
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            bn_one = name.endswith("running_var") or (
+                name.endswith(".weight") and t.dim() == 1)
+            t.fill_(1.0 if bn_one else 0.01)
+    return model
+
+
+def forward_flops(model: HoVerNet, n_patches: int):
+    """(total FLOPs, {module: FLOPs}) of the model's forward on
+    `n_patches` patches, counted by FlopCounterMode on a meta copy (no
+    compute)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    meta = copy.deepcopy(model).to("meta")
+    size = model.cfg.patch_input_shape
+    x = torch.zeros((n_patches, 3, size, size), device="meta")
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        meta(x)
+    per_module = {name: sum(ops.values())
+                  for name, ops in fc.get_flop_counts().items()}
+    return fc.get_total_flops(), per_module
+
+
+def canonical_grid(size: int, win: int, step: int):
+    """(patch top-left coords [K, 2] int64, canonical grid, canvas side) of
+    a size^2 tile's canonical patch grid (`bucket_grid_dim`)."""
+    _, _, grid = prepare_tile_patching((size, size), win, step)
+    rows, cols = bucket_grid_dim(grid[0]), bucket_grid_dim(grid[1])
+    ys = np.arange(0, rows * step, step, dtype=np.int64)
+    xs = np.arange(0, cols * step, step, dtype=np.int64)
+    yy, xx = np.meshgrid(ys, xs, indexing="ij")
+    coords = np.stack([yy.ravel(), xx.ravel()], axis=-1)
+    return coords, (rows, cols), rows * step + (win - step)
 
 
 def time_ms(fn, device, reps: int) -> float:

@@ -32,7 +32,7 @@ import torch
 from ..data.tiling import bucket_grid_dim, prepare_tile_patching
 from ..ops.post_proc_cuda import SKIPS, proc_tail
 from ..ops.post_proc_device import energy_inputs
-from .bench import synth_pred_map
+from .recipe import synth_pred_map
 
 WINDOW, STEP = 256, 164  # fast mode's patch input and output
 REPS = 20  # timed calls per variant

@@ -1,5 +1,5 @@
 """bench.py's synthetic nuclei tile, and the batch stream of the recipe
-checkpoint that cli/bench.py trains (`recipe_batches`).
+checkpoint that cli/recipe.py trains (`recipe_batches`).
 
 A module without torch, so that the worker processes of
 `pooled_recipe_batches` start in a moment: they draw the recipe's tiles

@@ -1,7 +1,7 @@
-"""The port's measurement CLIs (hover_net_tpu_torch/cli/bench.py,
-bench_wsi, bench_train, probe_device_time, fused_encoder_drift,
-parity_drift_sweep) on the CPU, against the JAX package's code where
-there is some:
+"""The port's recipe checkpoint (hover_net_tpu_torch/cli/recipe.py) and
+the CLIs that share it (bench_train, probe_device_time,
+fused_encoder_drift, parity_drift_sweep) on the CPU, against the JAX
+package's code where there is some:
 
 - `synth_nuclei_image` and `synth_pred_map` equal bench.py's, array for
   array;
@@ -10,12 +10,6 @@ there is some:
   a 3-step width-8 recipe writes a `.tar` that the port's tile manager
   loads and that `jax_from_state_dict` carries to the variables the JAX
   package's own `.tar` loader reads; a second call hits the cache;
-- the slice: cli.bench's tile path at width 8 in float32 and the JAX
-  TileInferManager, on the same weights carried across with
-  `jax_from_state_dict` and the same `synth_nuclei_image`, give the same
-  instances, label map for label map;
-- cli.bench_wsi on a 700^2 slide writes the nuclei the port's WSI CLI
-  writes on that slide;
 - cli.bench_train's float32 parameters with a bf16 body and float32
   heads; the prefix cuts of cli.probe_device_time equal the full model's
   intermediates, exactly in float32; the drift CLIs' AJI equals the JAX
@@ -23,7 +17,7 @@ there is some:
 - each CLI's `main` on `--device cpu` prints one parseable JSON line
   last.
 
-The weights of the tile and WSI cases are a seeded width-8 init whose np
+The weights of the drift CLIs' cases are a seeded width-8 init whose np
 head is a constant foreground (as tests/test_torch_tile.py makes them),
 so the instances are cut by the hv maps of the random net.
 """
@@ -37,12 +31,11 @@ import torch
 
 import bench as jax_bench
 from hover_net_tpu_torch.cli import (
-    bench,
     bench_train,
-    bench_wsi,
     fused_encoder_drift,
     parity_drift_sweep,
     probe_device_time,
+    recipe,
 )
 from hover_net_tpu_torch.models.checkpoints import (
     jax_from_state_dict,
@@ -72,11 +65,11 @@ def forced_tar(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def recipe(tmp_path_factory):
+def cached_recipe(tmp_path_factory):
     """(cache dir, path) of a 3-step width-8 recipe checkpoint on the CPU."""
     d = str(tmp_path_factory.mktemp("recipe"))
     kw = dict(steps=3, batch=2, width=WIDTH, device="cpu", ckpt_dir=d)
-    return kw, bench.train_e2e_checkpoint(**kw)
+    return kw, recipe.train_e2e_checkpoint(**kw)
 
 
 # ------------------------------------------------------- synthetic data
@@ -87,7 +80,7 @@ def test_synthetic_data_equals_bench(fn, seed):
     kw = (dict(seed=seed, n_nuclei=60) if fn == "synth_nuclei_image"
           else dict(n_nuclei=60, seed=seed))
     want = getattr(jax_bench, fn)(200, 180, **kw)
-    got = getattr(bench, fn)(200, 180, **kw)
+    got = getattr(recipe, fn)(200, 180, **kw)
     for w, g in zip(want if isinstance(want, tuple) else (want,),
                     got if isinstance(got, tuple) else (got,)):
         assert g.dtype == w.dtype
@@ -117,7 +110,7 @@ def jax_recipe_batches(rng, batch, n):
 
 def test_recipe_batches_equal_bench_code():
     want = jax_recipe_batches(np.random.default_rng(0), 2, 3)
-    gen = bench.recipe_batches(np.random.default_rng(0), 2)
+    gen = recipe.recipe_batches(np.random.default_rng(0), 2)
     for w in want:
         got = next(gen)
         assert got.keys() == w.keys()
@@ -127,7 +120,7 @@ def test_recipe_batches_equal_bench_code():
 
 
 def test_typed_recipe_batches_draw_types_per_instance():
-    b = next(bench.recipe_batches(np.random.default_rng(0), 2, nr_types=5))
+    b = next(recipe.recipe_batches(np.random.default_rng(0), 2, nr_types=5))
     assert b["tp_map"].shape == b["np_map"].shape == (2, 164, 164)
     assert set(np.unique(b["tp_map"])) <= {0, 1, 2, 3, 4}
     np.testing.assert_array_equal(b["tp_map"] > 0, b["np_map"] > 0)
@@ -143,7 +136,7 @@ def test_pooled_recipe_batches_equal_recipe_batches(nr_types, guess):
     tile draws)."""
     from hover_net_tpu_torch.data.synthetic import pooled_recipe_batches
 
-    gen = bench.recipe_batches(np.random.default_rng(3), 3, nr_types)
+    gen = recipe.recipe_batches(np.random.default_rng(3), 3, nr_types)
     host_s = []
     got = list(pooled_recipe_batches(3, 3, 4, nr_types, workers=2, ahead=3,
                                      guess=guess, host_s=host_s))
@@ -156,18 +149,18 @@ def test_pooled_recipe_batches_equal_recipe_batches(nr_types, guess):
             np.testing.assert_array_equal(g[k], w[k])
 
 
-def test_recipe_checkpoint_loads_in_both_packages(recipe):
+def test_recipe_checkpoint_loads_in_both_packages(cached_recipe):
     from hover_net_tpu.models import HoVerNetConfig as JaxConfig
     from hover_net_tpu.models.checkpoints import load_torch_tar as jax_load
 
     from hover_net_tpu_torch.infer.tile import TileInferManager
 
-    _, path = recipe
+    _, path = cached_recipe
     mgr = TileInferManager(model_path=path, width=WIDTH,
                            dtype=torch.float32, device="cpu")
     state = load_torch_tar(path)
-    assert bench.state_sha256(mgr.model.state_dict()) == \
-        bench.state_sha256(state)
+    assert recipe.state_sha256(mgr.model.state_dict()) == \
+        recipe.state_sha256(state)
     cfg = HoVerNetConfig(mode="fast", nr_types=None, width=WIDTH)
     carried = jax_from_state_dict(state, cfg)
     want = jax_load(path, JaxConfig(mode="fast", nr_types=None, width=WIDTH))
@@ -193,16 +186,16 @@ def no_training(*a, **k):
     raise AssertionError("the cached recipe was trained again")
 
 
-def test_recipe_checkpoint_is_cached(recipe, monkeypatch):
-    kw, path = recipe
-    monkeypatch.setattr(bench, "make_train_step", no_training)
-    assert bench.train_e2e_checkpoint(**kw) == path
+def test_recipe_checkpoint_is_cached(cached_recipe, monkeypatch):
+    kw, path = cached_recipe
+    monkeypatch.setattr(recipe, "make_train_step", no_training)
+    assert recipe.train_e2e_checkpoint(**kw) == path
     # another recipe is another file
     with pytest.raises(AssertionError, match="trained again"):
-        bench.train_e2e_checkpoint(**dict(kw, steps=4))
+        recipe.train_e2e_checkpoint(**dict(kw, steps=4))
 
 
-def test_recipe_cache_key_covers_the_training_code(recipe, monkeypatch):
+def test_recipe_cache_key_covers_the_training_code(cached_recipe, monkeypatch):
     """The key hashes the files of the code the recipe runs: an edit to
     one of them trains anew."""
     import sys
@@ -212,73 +205,19 @@ def test_recipe_cache_key_covers_the_training_code(recipe, monkeypatch):
     from hover_net_tpu_torch.ops import losses, targets
     from hover_net_tpu_torch.utils import crops
 
-    pkg = os.path.dirname(os.path.dirname(bench.__file__))
+    pkg = os.path.dirname(os.path.dirname(recipe.__file__))
     used = [sys.modules[f.__module__].__file__ for f in (
-        bench.train_e2e_checkpoint, bench.make_train_step, HoVerNet,
+        recipe.train_e2e_checkpoint, recipe.make_train_step, HoVerNet,
         blocks.ResidualBlock, losses.hovernet_loss, targets.gen_targets,
-        bench.device_prefetch, bench.save_train_tar, crops.cropping_center,
+        recipe.device_prefetch, recipe.save_train_tar, crops.cropping_center,
         synthetic.pooled_recipe_batches)]
-    assert {os.path.relpath(f, pkg) for f in used} == set(bench.RECIPE_SOURCES)
+    assert {os.path.relpath(f, pkg) for f in used} == set(recipe.RECIPE_SOURCES)
 
-    kw, path = recipe
-    monkeypatch.setattr(bench, "recipe_sources_sha256", lambda: "edited")
-    monkeypatch.setattr(bench, "make_train_step", no_training)
+    kw, path = cached_recipe
+    monkeypatch.setattr(recipe, "recipe_sources_sha256", lambda: "edited")
+    monkeypatch.setattr(recipe, "make_train_step", no_training)
     with pytest.raises(AssertionError, match="trained again"):
-        bench.train_e2e_checkpoint(**kw)
-
-
-# ------------------------------------------------------- the slice
-
-def test_bench_tile_path_equals_jax_tile_manager(tmp_path):
-    """cli.bench's tile path and the JAX manager, float32, same weights
-    (carried by jax_from_state_dict) and tile: identical label maps."""
-    import jax.numpy as jnp
-
-    from hover_net_tpu.infer.tile import TileInferManager as JaxTile
-    from hover_net_tpu.models.checkpoints import save_checkpoint
-
-    state = forced_foreground_state()
-    tar = str(tmp_path / "m.tar")
-    torch.save({"desc": state}, tar)
-    msgpack = str(tmp_path / "m.msgpack")
-    save_checkpoint(msgpack, jax_from_state_dict(
-        state, HoVerNetConfig(mode="fast", nr_types=None, width=WIDTH)))
-
-    mgr = bench.e2e_manager(tar, width=WIDTH, dtype=torch.float32,
-                            device="cpu")
-    got = bench.bench_e2e_real_content(mgr, size=300, iters=2, reps=1,
-                                       work_dir=str(tmp_path))
-    jax_mgr = JaxTile(model_path=msgpack, mode="fast", nr_types=None,
-                      width=WIDTH, batch_size=32, dtype=jnp.float32)
-    img, _ = bench.synth_nuclei_image(300, 300, seed=42)
-    _, want_map, want_info = jax_mgr.finalize_prediction(
-        img, jax_mgr.predict_image_async(img))
-    assert got["n_instances"] == len(want_info) > 5
-    assert got["counts"] == [len(want_info)]
-    np.testing.assert_array_equal(got["inst_map"], np.asarray(want_map))
-
-
-def test_bench_wsi_writes_the_wsi_cli_nuclei(forced_tar, tmp_path, capsys):
-    from hover_net_tpu_torch.cli import run_infer
-
-    work = str(tmp_path / "wsi")
-    common = ["--width", str(WIDTH), "--device", "cpu", "--model_path",
-              forced_tar]
-    out = bench_wsi.main(common + [
-        "--size", "700", "--chunk_shape", "512", "--tile_shape", "256",
-        "--ambiguous_size", "32", "--workdir", work])
-    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
-        == json.loads(json.dumps(out))
-    run_infer.main(common + [
-        "wsi", "--input_dir", os.path.join(work, "in"), "--output_dir",
-        str(tmp_path / "cli"), "--input_mask_dir", os.path.join(work, "mask"),
-        "--chunk_shape", "512", "--tile_shape", "256", "--ambiguous_size",
-        "32", "--cache_path", str(tmp_path / "cache")])
-    with open(tmp_path / "cli" / "slide.json") as f:
-        want = len(json.load(f)["nuc"])
-    assert out["n_nuclei"] == want > 20
-    assert out["k1_launches"] == 0  # the plain version on the CPU
-    assert out["n_window_batches"] > 0 and out["n_forward_batches"] > 0
+        recipe.train_e2e_checkpoint(**kw)
 
 
 # ------------------------------------------------------- training
@@ -302,7 +241,7 @@ def test_bench_trainer_keeps_float32_parameters_with_a_bf16_body():
     state, step = bench_train.bf16_trainer(WIDTH, torch.device("cpu"))
     net = state.model
     seen = record_outputs({"d0": net.d0, "head": net.decoder["np"].u0})
-    batch = {k: torch.from_numpy(v) for k, v in next(bench.recipe_batches(
+    batch = {k: torch.from_numpy(v) for k, v in next(recipe.recipe_batches(
         np.random.default_rng(0), 2)).items()}
     _, (terms, _) = step(state, batch)
     assert {k: v.dtype for k, v in seen.items()} == {
@@ -330,6 +269,51 @@ def test_prefix_cuts_equal_full_model_intermediates(cut):
     seen["full"] = torch.cat(list(out.values()), dim=1)
     assert got.dtype == torch.float32
     assert torch.equal(got, seen[cut])
+
+
+@pytest.mark.parametrize("size", [164, 200, 1000])
+def test_canonical_grid_tiles_the_canvas(size):
+    """The probe's patches: a row-major grid of top-left corners a step
+    apart whose outputs cover the source, in a canvas one patch margin
+    wider than the outputs."""
+    from hover_net_tpu_torch.data.tiling import prepare_tile_patching
+
+    win, step = 256, 164
+    coords, (rows, cols), canvas = probe_device_time.canonical_grid(
+        size, win, step)
+    exact = prepare_tile_patching((size, size), win, step)[2]
+    assert rows >= exact[0] and cols >= exact[1]
+    assert rows * step >= size and canvas == rows * step + win - step
+    want = [(y * step, x * step) for y in range(rows) for x in range(cols)]
+    assert coords.dtype == np.int64
+    assert [tuple(c) for c in coords.tolist()] == want
+    if size == 1000:
+        assert (rows, cols) == (7, 7)
+
+
+def test_forward_flops_count_each_patch_once():
+    net = HoVerNet(HoVerNetConfig(mode="fast", nr_types=None, width=WIDTH))
+    one, per_module = probe_device_time.forward_flops(net, 1)
+    two, _ = probe_device_time.forward_flops(net, 2)
+    assert one > 0 and two == 2 * one and per_module["Global"] == one
+    # the count runs on a meta copy: the model keeps its weights
+    assert {p.device.type for p in net.parameters()} == {"cpu"}
+
+
+def test_fill_synthetic_sets_the_timing_weights():
+    """Each BatchNorm's scale and running variance 1, every other
+    parameter and buffer 0.01, the batch counters left alone."""
+    net = probe_device_time.fill_synthetic(
+        HoVerNet(HoVerNetConfig(mode="fast", nr_types=None, width=WIDTH)))
+    ones = {f"{name}.{k}" for name, m in net.named_modules()
+            if hasattr(m, "running_var") for k in ("weight", "running_var")}
+    state = net.state_dict()
+    assert ones and ones < state.keys()
+    for name, t in state.items():
+        if name.endswith("num_batches_tracked"):
+            assert int(t) == 0, name
+        else:
+            assert torch.all(t == (1.0 if name in ones else 0.01)), name
 
 
 # ------------------------------------------------------- drift scoring
@@ -368,9 +352,6 @@ def cli_cases():
     """(name, main, argv(tmp dir, tar)) of each CLI's CPU run."""
     small = ["--device", "cpu", "--width", str(WIDTH)]
     return [
-        ("bench", bench.main, lambda t, tar: small + [
-            "--size", "200", "--iters", "1", "--reps", "1",
-            "--model_path", tar, "--ckpt_dir", t]),
         ("bench_train", bench_train.main, lambda t, tar: small + [
             "--batch", "2", "--steps", "2"]),
         ("bench_train --loader_only", bench_train.main, lambda t, tar: small + [
@@ -391,11 +372,7 @@ def cli_cases():
 @pytest.mark.parametrize("name,main,argv", cli_cases(),
                          ids=[c[0] for c in cli_cases()])
 def test_main_prints_one_json_line_last(name, main, argv, forced_tar,
-                                        tmp_path, capsys, monkeypatch):
-    # one tile a rep for bench's secondary readouts on the CPU
-    for const in ("MULTI_ITERS", "MULTI_REPS", "PROXY_ITERS", "PROXY_REPS",
-                  "DEVICE_TILES"):
-        monkeypatch.setattr(bench, const, 1)
+                                        tmp_path, capsys):
     out = main(argv(str(tmp_path), forced_tar))
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert json.loads(last) == json.loads(json.dumps(out))

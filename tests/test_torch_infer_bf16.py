@@ -4,7 +4,7 @@ body) against the JAX package's bf16 forward, on the CPU, width 8.
 Weights. A seeded float32 port model whose BatchNorm affines are drawn
 as the suite draws them (scale U(0.5, 1.5), bias N(0, 0.1)) and whose
 running statistics are those of one float32 train-mode batch of two
-synthetic nuclei patches (`cli.bench.synth_nuclei_image`, momentum 1):
+synthetic nuclei patches (`cli.recipe.synth_nuclei_image`, momentum 1):
 |mean| / std of the BN inputs is then what a trained net sees (median
 ~0.4, a few above 5), where the suite's N(0, 0.1) means would hide a
 rounded statistic. The JAX package gets the same float32 values through
@@ -69,7 +69,7 @@ from flax import linen as nn
 
 from hover_net_tpu.models import HoVerNet as JaxHoVerNet
 from hover_net_tpu.models import HoVerNetConfig as JaxConfig
-from hover_net_tpu_torch.cli.bench import synth_nuclei_image
+from hover_net_tpu_torch.cli.recipe import synth_nuclei_image
 from hover_net_tpu_torch.metrics.stats import get_fast_aji
 from hover_net_tpu_torch.models.blocks import BatchNorm2d, upsample2x
 from hover_net_tpu_torch.models.checkpoints import jax_from_state_dict

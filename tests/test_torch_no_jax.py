@@ -15,10 +15,10 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "msgpack", "hover_net_tpu", "bench",
              "scripts")
-# the port's counterparts of bench.py and scripts/, under cli/
-MEASUREMENT_CLIS = ("bench", "bench_wsi", "bench_train", "probe_device_time",
-                    "fused_encoder_drift", "parity_drift_sweep",
-                    "eval_consep", "eval_consep_dryrun",
+# the port's counterparts of bench.py's recipe and of scripts/, under cli/
+MEASUREMENT_CLIS = ("recipe", "probe_pp_stages", "bench_train",
+                    "probe_device_time", "fused_encoder_drift",
+                    "parity_drift_sweep", "eval_consep", "eval_consep_dryrun",
                     "bench_finalize_pool")
 
 
@@ -66,11 +66,11 @@ def test_forbidden_imports_are_found(tmp_path):
 
 def test_jax_bench_and_scripts_imports_are_found(tmp_path):
     """An import of bench.py or of a module of scripts/ is found; the
-    port's own cli.bench is not."""
+    port's own cli.bench_train and cli.recipe are not."""
     src = ("import bench\nfrom scripts import probe_forward_split\n"
            "from scripts.bench_wsi import main\n"
-           "from hover_net_tpu_torch.cli import bench\n"
-           "from hover_net_tpu_torch.cli.bench import synth_pred_map\n")
+           "from hover_net_tpu_torch.cli import bench_train\n"
+           "from hover_net_tpu_torch.cli.recipe import synth_pred_map\n")
     path = tmp_path / "probe.py"
     path.write_text(src)
     assert [n for _, n in forbidden_imports(str(path))] == [

@@ -3,7 +3,7 @@ float32 parameters, a bf16 `torch.autocast` body, float32 heads and loss)
 against the JAX package's bf16 step (`HoVerNetConfig(dtype=bfloat16)`,
 as scripts/bench_train.py configures it), on the CPU.
 
-Width 8, fast mode, untyped, one recipe batch of cli/bench.py (two 256^2
+Width 8, fast mode, untyped, one recipe batch of cli/recipe.py (two 256^2
 `synth_nuclei_image`s, 164^2 targets); the port's seeded start weights
 reach JAX through `jax_from_state_dict`.
 
@@ -50,7 +50,7 @@ from hover_net_tpu.models import HoVerNet as JaxHoVerNet
 from hover_net_tpu.models import HoVerNetConfig as JaxConfig
 from hover_net_tpu.ops.losses import hovernet_loss as jax_hovernet_loss
 from hover_net_tpu.parallel import train_parallel as j_tp
-from hover_net_tpu_torch.cli import bench, bench_train
+from hover_net_tpu_torch.cli import bench_train, recipe
 from hover_net_tpu_torch.models.checkpoints import (
     jax_from_state_dict,
     state_dict_from_jax,
@@ -130,7 +130,7 @@ def jax_step(variables, batch):
 
 @pytest.fixture(scope="module")
 def runs():
-    batch = next(bench.recipe_batches(np.random.default_rng(0), 2))
+    batch = next(recipe.recipe_batches(np.random.default_rng(0), 2))
     state, step = bench_train.bf16_trainer(WIDTH, torch.device("cpu"))
     start = {k: v.clone() for k, v in state.model.state_dict().items()}
     variables = jax_from_state_dict(start, CFG)

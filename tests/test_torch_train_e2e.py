@@ -200,50 +200,3 @@ def test_init_train_state_runs_on_the_card_by_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tp.init_train_state(net, tx)
-
-
-def test_train_step_split_counts_kernels_once():
-    """The device time of a profiler window: kernels and copies as the
-    union of their intervals (an overlap counts once), summed by group; a
-    device event named as a host event (a `record_function` annotation
-    spanning kernels) is left out."""
-    from types import SimpleNamespace as NS
-
-    from hover_net_tpu_torch.cli.train_step_split import device_split
-
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-
-    def event(name, device, start, end):
-        return NS(name=name, device_type=device, device_time=end - start,
-                  time_range=NS(start=start, end=end))
-
-    prof = NS(events=lambda: [
-        event("Optimizer.step#Adam.step", cpu, 0, 5000),
-        event("Optimizer.step#Adam.step", cuda, 0, 9000),
-        event("cudnn_convolution_fprop", cuda, 1000, 3000),
-        event("multi_tensor_apply_kernel adam", cuda, 2000, 4000),
-        event("Memcpy HtoD", cuda, 6000, 7000),
-        event("vectorized_elementwise_kernel", cuda, 8000, 8500),
-    ])
-    busy, groups = device_split(prof, n_steps=2)
-    assert busy == pytest.approx((3000 + 1000 + 500) / 1e3 / 2)
-    assert groups == pytest.approx({
-        "convolution": 1.0, "optimizer": 1.0, "copy / memset": 0.5,
-        "elementwise, other": 0.25})
-    assert device_split(NS(events=lambda: [event("aten::add", cpu, 0, 1)]),
-                        1) is None
-
-
-def test_train_step_split_cli_on_cpu(capsys):
-    from hover_net_tpu_torch.cli import train_step_split
-
-    res = train_step_split.main(["--width", "8", "--size", "96",
-                                 "--steps", "1", "--device", "cpu"])
-    assert [(r["freeze_encoder"], r["batch"]) for r in res] == [
-        (True, 16), (False, 4)]
-    for r in res:
-        assert r["step_ms"] > 0 and r["step_ms_tf32_off"] > 0
-        assert r["window_ms"] > 0 and "busy_ms" not in r
-    out = capsys.readouterr().out.strip().splitlines()
-    assert "device time not measured" in out[0]
-    assert json.loads(out[-1])["settings"] == json.loads(json.dumps(res))
