@@ -18,8 +18,9 @@ Counterpart of hover_net_tpu/infer/wsi.py, with its structure:
   batches stay queued, a pool extracts instances, and the callbacks that
   renumber and stitch run in order. Where the pred map is resident on one
   device, the slide's instance map lives beside it and the callbacks'
-  whole-window passes run there on the tail's labels; the host keeps the
-  per-nucleus dict;
+  whole-window passes run there on the tail's labels; each window's
+  instance tables are built there too, and the host pulls them in place
+  of the labels and keeps the per-nucleus dict;
 - resume: a slide whose json exists is skipped.
 
 Several devices (`n_devices` > 1, or an explicit `devices` list of more
@@ -97,8 +98,14 @@ from ..ops.post_proc_device import (
     compact_labels_u16,
     proc_np_hv_batch,
     remap_labels_u16,
+    window_caps,
+    window_tables,
 )
-from ..ops.post_proc_host import extract_instance_info, instance_info_lut
+from ..ops.post_proc_host import (
+    extract_instance_info,
+    instance_info_from_tables,
+    instance_info_lut,
+)
 from ..parallel.mesh import (
     Mesh,
     all_gather,
@@ -202,6 +209,17 @@ def _host_cat(pulls) -> np.ndarray:
     return np.concatenate([_host(p) for p in pulls], axis=0)
 
 
+def _unpack_tables(row: np.ndarray, layout) -> Dict[str, np.ndarray]:
+    """One window's row of a pulled batch of tables -> {name: array}, by
+    the `(name, shape)` layout they were packed in."""
+    out, lo = {}, 0
+    for name, shape in layout:
+        size = int(np.prod(shape, dtype=np.int64))
+        out[name] = row[lo:lo + size].reshape(shape)
+        lo += size
+    return out
+
+
 def _id_table(ids: torch.Tensor, n: int, drop_min: bool = False):
     """[n] bool: which of the ids 0..n-1 occur in `ids` (int64, each
     below n); with `drop_min` the smallest that occurs left out, as
@@ -276,8 +294,10 @@ class WSIInferManager(base.InferManagerBase):
         # `vit_decoder`) their device ms, summed over the forward batches;
         # the phase callbacks run on the device's instance map
         # (`pp_callback_windows_dev`) or on a host map
-        # (`pp_callback_windows_host`). And the forward and window batches
-        # of the last slide
+        # (`pp_callback_windows_host`); the extraction's windows made
+        # their dicts from the device's tables (`pp_extract_windows_tables`)
+        # or from a dense map (`pp_extract_windows_dense`). And the forward
+        # and window batches of the last slide
         self.mesh = (make_mesh(devices=self.devices)
                      if len(self.devices) > 1 else None)
         self.timings: Dict[str, Dict[str, float]] = {}
@@ -670,13 +690,18 @@ class WSIInferManager(base.InferManagerBase):
         `batch` windows at a time (under a mesh `batch` a slot, each slot
         post-processing its consecutive shard), with `inflight` batches
         queued ahead of the host. The extraction of instances runs on a
-        pool; the callbacks run in order, one batch at a time. Returns
-        the number of window batches and the seconds taken. The main
-        thread's seconds in the extraction (with the label pulls before
-        it; span `hnt.wsi.pp.extract`) and in the callbacks (span
+        pool; the callbacks run in order, one batch at a time. Where the
+        labels stay on the device (`dev_labels`) the host pulls each
+        window's instance tables, built there, and makes the dict from
+        them; elsewhere it pulls the labels and extracts from the dense
+        map. Returns the number of window batches and the seconds taken.
+        The main thread's seconds in the extraction (with the pulls
+        before it; span `hnt.wsi.pp.extract`) and in the callbacks (span
         `hnt.wsi.pp.callback`) are added into the slide's `pp_extract`
-        and `pp_callback`; each batch's dispatch is span
-        `hnt.wsi.pp.dispatch`."""
+        and `pp_callback`, and its windows into `pp_extract_windows_tables`
+        (the dict from the tables) or `pp_extract_windows_dense` (from a
+        dense map: the host path, or a window whose tables overflow);
+        each batch's dispatch is span `hnt.wsi.pp.dispatch`."""
         start = time.perf_counter()
         times = self._slide_times
         per_slot = batch
@@ -700,35 +725,70 @@ class WSIInferManager(base.InferManagerBase):
                    for shape, idxs in groups.items()
                    for i in range(0, len(idxs), batch)]
         # the callbacks take the windows' labels where the tail left them
-        # when the instance map lives on that device
+        # when the instance map lives on that device; the host then pulls
+        # each window's instance tables in place of its labels
         dev_labels = (self._pred_dev_mode and self.mesh is None
                       and isinstance(self.wsi_inst_map, torch.Tensor))
 
+        def pool_map(fn, n):
+            if ext_pool is not None and n > 1:
+                return list(ext_pool.map(fn, range(n)))
+            return [fn(k) for k in range(n)]
+
+        def extract_dense(item):
+            """[(map, dict)] of a batch from its label (and type) pulls:
+            each window renumbered and extracted on the host."""
+            idxs, _, inst_pulls, nlabs, geoms, tps, tp_pulls = item
+            _warn_u16_overflow(nlabs)
+            inst_host = _host_cat(inst_pulls)
+            if tp_pulls is not None:
+                tp_host = _host_cat(tp_pulls)
+                tps = [tp_host[k, g[0]:g[1], g[2]:g[3]].astype(np.int32)
+                       for k, g in enumerate(geoms)]
+
+            def extract_one(k):
+                y0, y1, x0, x1 = geoms[k]
+                return extract_instance_info(remap_label(
+                    inst_host[k, y0:y1, x0:x1].astype(np.int32)), tps[k])
+
+            return pool_map(extract_one, len(idxs))
+
+        def extract_tables(item):
+            """[(dict, lut)] of a batch from its pulled window tables, and
+            how many windows they served; a window whose tables overflow
+            (a capacity, or an instance past the int32 sums' bound) pulls
+            its crop and takes the dense extraction."""
+            idxs, crops, pull, layout, geoms, tp = item
+            tables = [_unpack_tables(row, layout) for row in _host(pull)]
+            _warn_u16_overflow([np.array([t["nlab"] for t in tables])])
+
+            def extract_one(k):
+                got = instance_info_from_tables(tables[k], int(tables[k]["n"]),
+                                                typed)
+                if got[0] is not None:
+                    return got, True
+                y0, y1, x0, x1 = geoms[k]
+                tp_k = (tp[k, y0:y1, x0:x1].to(torch.int32).cpu().numpy()
+                        if typed else None)
+                return instance_info_lut(crops[k].cpu().numpy(), tp_k), False
+
+            out = pool_map(extract_one, len(idxs))
+            return [o for o, _ in out], sum(on for _, on in out)
+
         def finalize(item):
-            idxs, inst_pulls, nlabs, geoms, tps, tp_pulls, crops = item
+            idxs, crops = item[0], item[1]
             with span("hnt.wsi.pp.extract", times, "pp_extract"):
-                _warn_u16_overflow(nlabs)
-                inst_host = _host_cat(inst_pulls)
-                if tp_pulls is not None:
-                    tp_host = _host_cat(tp_pulls)
-                    tps = [tp_host[k, g[0]:g[1], g[2]:g[3]].astype(np.int32)
-                           for k, g in enumerate(geoms)]
-
-                def extract_one(k):
-                    y0, y1, x0, x1 = geoms[k]
-                    inst = remap_label(
-                        inst_host[k, y0:y1, x0:x1].astype(np.int32))
-                    if crops is None:
-                        return extract_instance_info(inst, tps[k])
-                    return instance_info_lut(inst, tps[k])
-
-                if ext_pool is not None and len(idxs) > 1:
-                    extracted = list(ext_pool.map(extract_one,
-                                                  range(len(idxs))))
+                if crops is None:
+                    extracted, n_tables = extract_dense(item), 0
                 else:
-                    extracted = [extract_one(k) for k in range(len(idxs))]
+                    extracted, n_tables = extract_tables(item)
+            if times is not None:
+                for key, n in (("pp_extract_windows_tables", n_tables),
+                               ("pp_extract_windows_dense",
+                                len(idxs) - n_tables)):
+                    times[key] = times.get(key, 0) + n
             with span("hnt.wsi.pp.callback", times, "pp_callback"), \
-                    self._callback_stream(crops, inst_pulls):
+                    self._callback_stream(crops, item[2]):
                 for k, idx in enumerate(idxs):
                     if crops is None:
                         inst, inst_info = extracted[k]
@@ -776,6 +836,8 @@ class WSIInferManager(base.InferManagerBase):
                     starts.append((wy, wx))
                     geoms.append(geom)
                 outs = self._pp_windows(shape, starts, geoms, per_slot)
+                if dev_labels:
+                    return (sub,) + self._window_tables_async(outs[0], geoms)
                 tps, tp_pulls = [None] * len(sub), None
                 if typed:
                     tp_pulls = [_to_host_async(tp) for _, _, tp in outs]
@@ -785,17 +847,11 @@ class WSIInferManager(base.InferManagerBase):
                 for wins, valids in shards:
                     self.n_window_shards += 1
                     outs.append(self._post_proc(wins, valids))
-            labs = [o[0].to(torch.int32) for o in outs]
-            crops = None
-            if dev_labels:
-                # each window's valid box renumbered as the host's
-                # `remap_label` renumbers it, left on the device
-                crops = [remap_labels_u16(labs[0][k, y0:y1, x0:x1])
-                         for k, (y0, y1, x0, x1) in enumerate(geoms)]
             # start the label pulls now; the host reads them `inflight`
             # batches later
-            return (sub, [_to_host_async(lab) for lab in labs],
-                    [o[1] for o in outs], geoms, tps, tp_pulls, crops)
+            return (sub, None,
+                    [_to_host_async(o[0].to(torch.int32)) for o in outs],
+                    [o[1] for o in outs], geoms, tps, tp_pulls)
 
         n_fin = getattr(self, "finalize_workers", 0) or min(
             8, os.cpu_count() or 1)
@@ -833,18 +889,44 @@ class WSIInferManager(base.InferManagerBase):
         logger.info("%s: %d boxes in %.2fs", desc, boxes.shape[0], secs)
         return len(batches), secs
 
-    def _callback_stream(self, crops, inst_pulls):
+    def _window_tables_async(self, out, geoms):
+        """The device side of a window batch's extraction where its labels
+        stay on the card: each window's valid box renumbered
+        (`remap_labels_u16`, the callbacks' labels), its instance tables
+        (`window_tables`, sized by the window's area) and one pull of them
+        with the tail's label counts, started now. No host read. Returns
+        (crops, pull, layout, geoms, the type maps)."""
+        inst, nlab, tp = out
+        lab = inst.to(torch.int32)
+        crops = [remap_labels_u16(lab[k, y0:y1, x0:x1])
+                 for k, (y0, y1, x0, x1) in enumerate(geoms)]
+        canvas = torch.zeros_like(lab)
+        tp_canvas = None if tp is None else torch.zeros_like(tp)
+        for k, (y0, y1, x0, x1) in enumerate(geoms):
+            canvas[k, :y1 - y0, :x1 - x0] = crops[k]
+            if tp is not None:
+                tp_canvas[k, :y1 - y0, :x1 - x0] = tp[k, y0:y1, x0:x1]
+        tables = window_tables(canvas, tp_canvas, self.nr_types,
+                               *window_caps(lab.shape[1] * lab.shape[2]))
+        tables["nlab"] = nlab
+        layout = [(name, tuple(t.shape[1:])) for name, t in tables.items()]
+        flat = torch.cat([t.reshape(len(geoms), -1).to(torch.int32)
+                          for t in tables.values()], 1)
+        return crops, _to_host_async(flat), layout, geoms, tp
+
+    def _callback_stream(self, crops, pull):
         """Where a window batch's callbacks run: for labels on a card, on a
-        stream of the manager's own that waits for this batch's label pull
-        (recorded behind its tail), so that a callback's read of ids waits
-        for the callbacks' work alone and not for the window batches
-        queued behind this one; elsewhere in place."""
+        stream of the manager's own that waits for this batch's tables'
+        pull (`pull`, recorded behind its tail and tables), so that a
+        callback's read of ids waits for the callbacks' work alone and not
+        for the window batches queued behind this one; elsewhere in
+        place."""
         if crops is None or not crops[0].is_cuda:
             return nullcontext()
         dev = crops[0].device
         if self._cb_stream is None or self._cb_stream.device != dev:
             self._cb_stream = torch.cuda.Stream(dev)
-        self._cb_stream.wait_event(inst_pulls[-1][1])
+        self._cb_stream.wait_event(pull[1])
         for crop in crops:
             crop.record_stream(self._cb_stream)
         return torch.cuda.stream(self._cb_stream)

@@ -268,12 +268,24 @@ _DIRS8 = ((0, 1), (-1, 1), (-1, 0), (-1, -1),
 
 
 def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """y[r, c] = x[r + dy, c + dx], 0 outside."""
-    h, w = x.shape
+    """y[..., r, c] = x[..., r + dy, c + dx], 0 outside."""
+    h, w = x.shape[-2:]
     out = torch.zeros_like(x)
-    out[max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0)] = \
-        x[max(dy, 0):h - max(-dy, 0), max(dx, 0):w - max(-dx, 0)]
+    out[..., max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0)] = \
+        x[..., max(dy, 0):h - max(-dy, 0), max(dx, 0):w - max(-dx, 0)]
     return out
+
+
+def _neighbour_mask(lab: torch.Tensor):
+    """int32 labels [..., H, W] -> (same, boundary): the 8-neighbour
+    bitmask of same-label neighbours (bit k = `_DIRS8[k]`; outside the
+    map counts as another label) and the labelled pixels whose mask is
+    not full."""
+    same = torch.zeros(lab.shape, dtype=torch.int32, device=lab.device)
+    for k, (dy, dx) in enumerate(_DIRS8):
+        nb = _shift2d(lab, dy, dx)
+        same |= ((nb == lab) & (lab > 0)).to(torch.int32) << k
+    return same, (lab > 0) & (same != 0xFF)
 
 
 def instance_tables(lab: torch.Tensor, tp_map: Optional[torch.Tensor] = None,
@@ -296,11 +308,7 @@ def instance_tables(lab: torch.Tensor, tp_map: Optional[torch.Tensor] = None,
     lab = lab.to(torch.int32)
     h, w = lab.shape
     dev = lab.device
-    same = torch.zeros((h, w), dtype=torch.int32, device=dev)
-    for k, (dy, dx) in enumerate(_DIRS8):
-        nb = _shift2d(lab, dy, dx)
-        same |= ((nb == lab) & (lab > 0)).to(torch.int32) << k
-    boundary = (lab > 0) & (same != 0xFF)
+    same, boundary = _neighbour_mask(lab)
 
     pos = torch.nonzero(boundary.flatten()).flatten()  # raster order
     coo_n = pos.numel()
@@ -352,4 +360,104 @@ def instance_tables(lab: torch.Tensor, tp_map: Optional[torch.Tensor] = None,
         out["size"] = sums[:, 0]
     if nr_types:
         out["type_hist"] = sums[:, 3:]
+    return out
+
+
+# the background pixels of a window and the unused slots of its COO add
+# into this many dustbin rows past the label rows, spread by position, so
+# that no single row takes the atomic adds of most of a window
+_DUST_ROWS = 1024
+
+
+def window_caps(area: int):
+    """(stat_cap, coo_cap) of the tables of a post-processing window of
+    `area` pixels. At PanNuke's 385 nuclei a tissue Mpx a 2048^2 window
+    of full tissue holds ~1,600 nuclei and ~10^5 boundary pixels; the caps
+    allow 5x both (8192 rows, 2^19 COO slots there)."""
+    return max(256, area >> 9), max(4096, area >> 3)
+
+
+def window_tables(lab: torch.Tensor, tp_map: Optional[torch.Tensor],
+                  nr_types: Optional[int], stat_cap: int, coo_cap: int):
+    """`instance_tables` of a batch of windows, with no host read: what the
+    WSI manager pulls in place of a window batch's label and type maps.
+
+    lab: [B, H, W] compacted labels (ids 0..n of each window; a window
+    smaller than H x W sits at the top left with 0 around it, which reads
+    as the window's own border); tp_map: [B, H, W] types (with nr_types);
+    the caps as `window_caps` gives them.
+    Returns a dict of [B, ...] int32 tensors: `coo`, `coo_n`, `bbox`,
+    `sum_yx`, `size` and `type_hist` (typed) as `instance_tables` gives
+    them for each window's labels (rows 1..stat_cap; row 0 and the bbox of
+    an absent id hold nothing), and `n`, each window's largest id.
+
+    Where `instance_tables` compacts the boundary with `torch.nonzero`
+    (a host read), each COO slot j here finds the (j + 1)-th boundary
+    pixel in the running count of boundary flags by a binary search, so
+    `coo_n` stays on the device. Background pixels and unused slots add
+    into `_DUST_ROWS` rows past the label rows, dropped at the end."""
+    b, h, w = lab.shape
+    dev = lab.device
+    lab = lab.to(torch.int32)
+    hw = h * w
+    rows = stat_cap + 1 + _DUST_ROWS
+    same, boundary = _neighbour_mask(lab)
+    flat = lab.reshape(b, hw)
+
+    # raster-order COO of the boundary pixels
+    cum = torch.cumsum(boundary.reshape(b, hw), 1, dtype=torch.int32)
+    coo_n = cum[:, -1]
+    slot = torch.arange(1, coo_cap + 1, dtype=torch.int32, device=dev)
+    pos = torch.searchsorted(cum, slot.expand(b, coo_cap).contiguous())
+    hit = slot[None] <= coo_n[:, None]
+    pos = pos.clamp_max(hw - 1)
+    yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
+    xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
+    pyx = ((yy << 16) | xx).reshape(hw)
+    plm = torch.gather(((lab << 8) | same).reshape(b, hw), 1, pos)
+    coo = torch.stack([torch.where(hit, pyx[pos], INT_MAX),
+                       torch.where(hit, plm, 0)], -1)
+
+    # per-id sums: one atomic add a pixel into each of the type histogram
+    # (whose row sums are the sizes), the y sums and the x sums
+    base = (torch.arange(b, device=dev) * rows)[:, None]
+    dust = stat_cap + 1 + (torch.arange(hw, device=dev) & (_DUST_ROWS - 1))
+    row = (torch.where(flat > 0, flat.clamp_max(stat_cap).long(), dust)
+           + base).reshape(-1)
+    n_t = nr_types or 1
+    key = row * n_t
+    if nr_types:
+        key = key + tp_map.to(torch.int64).reshape(-1).clamp(0, n_t - 1)
+    hist = torch.zeros(b * rows * n_t, dtype=torch.int32, device=dev)
+    hist.index_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    hist = hist.view(b, rows, n_t)[:, :stat_cap + 1]
+    sums = []
+    for coord in (yy, xx):
+        s = torch.zeros(b * rows, dtype=torch.int32, device=dev)
+        s.index_add_(0, row, coord.reshape(1, hw).expand(b, hw).reshape(-1))
+        sums.append(s.view(b, rows)[:, :stat_cap + 1])
+    size = hist.sum(-1, dtype=torch.int32)
+
+    # an instance's row/col extremes lie on its boundary: min/max over the
+    # COO give the bbox
+    bl = torch.where(hit, (coo[..., 1] >> 8).clamp_max(stat_cap).long(),
+                     stat_cap + 1 + ((slot.long() - 1) & (_DUST_ROWS - 1)))
+    bl = (bl + base).reshape(-1, 1).expand(-1, 2)
+    yx = torch.stack([coo[..., 0] >> 16, coo[..., 0] & 0xFFFF], -1)
+    mins = torch.full((b * rows, 2), INT_MAX, dtype=torch.int32, device=dev)
+    maxs = torch.zeros((b * rows, 2), dtype=torch.int32, device=dev)
+    mins.scatter_reduce_(0, bl, yx.reshape(-1, 2), "amin")
+    maxs.scatter_reduce_(0, bl, yx.reshape(-1, 2) + 1, "amax")
+    mins = mins.view(b, rows, 2)[:, :stat_cap + 1]
+    maxs = maxs.view(b, rows, 2)[:, :stat_cap + 1]
+    present = size > 0
+    out = {"coo": coo, "coo_n": coo_n,
+           "bbox": torch.stack([torch.where(present, mins[..., 0], h),
+                                maxs[..., 0],
+                                torch.where(present, mins[..., 1], w),
+                                maxs[..., 1]], -1),
+           "sum_yx": torch.stack(sums, -1), "size": size,
+           "n": flat.amax(1)}
+    if nr_types:
+        out["type_hist"] = hist
     return out

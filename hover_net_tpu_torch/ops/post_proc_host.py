@@ -164,32 +164,42 @@ def assemble_instance_info(bbox_t, centroid_t, size_t, hist_t, contours,
                            typed: bool):
     """(tables, contours) -> ({id: info}, skipped ids). The shared tail
     of extract_instance_info and instance_info_from_tables; instances
-    whose contour has < 3 points are skipped (post_proc.py:140-143)."""
+    whose contour has < 3 points are skipped (post_proc.py:140-143).
+
+    The bboxes, centroids and majority votes are computed for all ids at
+    once; each entry's `bbox` and `centroid` are its own rows of those
+    arrays, so the loop only builds the dicts."""
+    n = bbox_t.shape[0]
+    size_t = np.asarray(size_t)
+    bboxes = np.asarray(bbox_t, np.int64)[:, [0, 2, 1, 3]].reshape(n, 2, 2)
+    centroids = np.array(centroid_t, np.float64).reshape(n, 2)
+    if typed:
+        hist = np.asarray(hist_t)
+        order = np.argsort(-hist, axis=1, kind="stable")
+        types = order[:, 0].copy()
+        if hist.shape[1] > 1:
+            # background wins only where no other type was voted
+            rows = np.arange(n)
+            swap = (types == 0) & (hist[rows, order[:, 1]] > 0)
+            types[swap] = order[swap, 1]
+        probs = hist[np.arange(n), types] / (size_t + 1.0e-6)
     inst_info = {}
     skipped = []
-    for idx in range(bbox_t.shape[0]):
-        if size_t[idx] == 0:
-            continue
+    for idx in np.flatnonzero(size_t).tolist():
         contour = contours[idx]
         if contour.shape[0] < 3:
             skipped.append(idx + 1)
             continue
-        rmin, rmax, cmin, cmax = (int(v) for v in bbox_t[idx])
         info = {
-            "bbox": np.array([[rmin, cmin], [rmax, cmax]]),
-            "centroid": np.asarray(centroid_t[idx], np.float64).copy(),
+            "bbox": bboxes[idx],
+            "centroid": centroids[idx],
             "contour": contour,
             "type_prob": None,
             "type": None,
         }
         if typed:
-            hist = hist_t[idx]
-            order = np.argsort(-hist, kind="stable")
-            inst_type = int(order[0])
-            if inst_type == 0 and len(order) > 1 and hist[order[1]] > 0:
-                inst_type = int(order[1])
-            info["type"] = inst_type
-            info["type_prob"] = float(hist[inst_type] / (size_t[idx] + 1.0e-6))
+            info["type"] = int(types[idx])
+            info["type_prob"] = float(probs[idx])
         inst_info[idx + 1] = info
     return inst_info, skipped
 

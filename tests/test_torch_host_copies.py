@@ -248,6 +248,36 @@ def test_extract_instance_info_and_json(typed, tmp_path):
     assert set(json.loads(payload)["nuc"]) == {str(i) for i in ids}
 
 
+@pytest.mark.parametrize("typed", [False, True])
+def test_assemble_instance_info_equals_the_loop(typed):
+    """The port's whole-table dict assembly against the JAX package's
+    per-instance loop: absent ids, contours under 3 points, vote ties,
+    background majorities with and without a second vote, int32 and int64
+    tables; the same dict, key order and dtypes included."""
+    rng = np.random.default_rng(11)
+    n, n_types = 300, 5
+    size = rng.integers(0, 50, n)
+    size[::17] = 0
+    hist = rng.integers(0, 4, (n, n_types))
+    hist[::5, 1:] = 0            # background alone
+    hist[1::5, 0] = 9            # background ahead of a second vote
+    hist[2::5, 1:3] = 7          # a tie for the lead
+    lo = rng.integers(0, 100, (n, 2))
+    bbox = np.stack([lo[:, 0], lo[:, 0] + 5, lo[:, 1], lo[:, 1] + 4], 1)
+    centroid = rng.random((n, 2)) * 100
+    contours = [rng.integers(0, 100, (int(rng.integers(1, 8)), 2))
+                .astype(np.int32) for _ in range(n)]
+    for dtype in (np.int32, np.int64):
+        args = (bbox.astype(dtype), centroid, size.astype(dtype),
+                hist.astype(dtype) if typed else None, contours, typed)
+        got = t_host.assemble_instance_info(*args)
+        want = j_host.assemble_instance_info(*args)
+        assert list(got[0]) == list(want[0]) and len(want[1]) > 10
+        assert all(list(g) == list(w)
+                   for g, w in zip(got[0].values(), want[0].values()))
+        assert_same(got, want)
+
+
 @pytest.mark.parametrize("nr_types", [None, 3])
 def test_instance_info_from_tables(nr_types):
     inst = t_stats.remap_label(blobs(seed=6)).astype(np.int32)

@@ -169,6 +169,56 @@ def test_building_blocks_match_jax():
 
 
 @pytest.mark.parametrize("nr_types", [None, 5])
+@pytest.mark.parametrize("caps", [(4096, 1 << 14), (8, 256)],
+                         ids=["fits", "overflows"])
+def test_window_tables_equal_instance_tables(nr_types, caps):
+    """The WSI's batched window tables (no host read) against the tile's
+    `instance_tables` of each window alone: crops of ragged sizes,
+    renumbered as the manager renumbers them, at the top left of a zero
+    canvas. The same `coo[:coo_n]`, `coo_n`, sizes, sums and type
+    histograms (rows 1..stat_cap) and the bbox of every present id, also
+    where the ids pass `stat_cap` and the boundary passes `coo_cap`."""
+    stat_cap, coo_cap = caps
+    pred = np.concatenate([make_map("nuclei"), make_map("edge")])
+    inst = tpp.proc_np_hv_batch(torch.from_numpy(pred))
+    lab = tpp.compact_labels_u16(inst)[0].to(torch.int32)
+    tp = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 7, lab.shape).astype(np.uint8))
+    boxes = ((0, 128, 0, 128), (17, 120, 3, 77), (40, 41, 60, 90),
+             (5, 128, 64, 128))
+    src = (0, 1, 1, 0)
+    h, w = lab.shape[1:]
+    canvas = torch.zeros((len(boxes), h, w), dtype=torch.int32)
+    tp_canvas = torch.zeros((len(boxes), h, w), dtype=torch.uint8)
+    crops = []
+    for k, (b, (y0, y1, x0, x1)) in enumerate(zip(src, boxes)):
+        crop = tpp.remap_labels_u16(lab[b, y0:y1, x0:x1])
+        crops.append((crop, tp[b, y0:y1, x0:x1]))
+        canvas[k, :y1 - y0, :x1 - x0] = crop
+        tp_canvas[k, :y1 - y0, :x1 - x0] = crops[-1][1]
+    got = tpp.window_tables(canvas, tp_canvas, nr_types, stat_cap, coo_cap)
+    assert set(got) == {"coo", "coo_n", "bbox", "sum_yx", "size", "n"} | (
+        {"type_hist"} if nr_types else set())
+    if stat_cap == 8:  # the ids pass one cap and the boundary the other
+        assert int(got["n"].max()) > stat_cap
+        assert int(got["coo_n"].max()) > coo_cap
+    for k, (crop, tp_crop) in enumerate(crops):
+        want = tpp.instance_tables(crop, tp_crop, coo_cap=coo_cap,
+                                   stat_cap=stat_cap, nr_types=nr_types)
+        n = int(crop.max())
+        assert int(got["n"][k]) == n
+        assert int(got["coo_n"][k]) == int(want["coo_n"])
+        np.testing.assert_array_equal(got["coo"][k].numpy(),
+                                      want["coo"].numpy())
+        for key in ("size", "sum_yx") + (("type_hist",) if nr_types else ()):
+            np.testing.assert_array_equal(got[key][k, 1:].numpy(),
+                                          want[key][1:].numpy(), err_msg=key)
+        top = min(n, stat_cap) + 1
+        np.testing.assert_array_equal(got["bbox"][k, 1:top].numpy(),
+                                      want["bbox"][1:top].numpy())
+
+
+@pytest.mark.parametrize("nr_types", [None, 5])
 def test_compaction_and_tables_match_jax(nr_types):
     """Same seed-index label map -> identical uint16 ids, label counts
     and tables, including capacity overflow (coo_cap, stat_cap)."""

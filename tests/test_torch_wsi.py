@@ -59,6 +59,8 @@ def manager(cls, pred, tmp_path, tag, dev_mode, nr_types=None, workers=0):
     mgr.wsi_inst_info = {}
     mgr.wsi_inst_map = np.zeros(shape, np.int32)
     mgr._fwd_fns = {}
+    if cls is PortWSI:
+        mgr._slide_times = {}
     if workers:
         mgr.finalize_workers = workers
     if dev_mode:
@@ -69,6 +71,10 @@ def manager(cls, pred, tmp_path, tag, dev_mode, nr_types=None, workers=0):
         mgr._pred_dev_mode = True
         mgr._pred_dev = (jnp.asarray(buf) if cls is JaxWSI
                          else torch.from_numpy(buf))
+        if cls is PortWSI:
+            # beside a resident pred map the port keeps the instance map
+            # on its device, as `process_single_file` allocates it
+            mgr.wsi_inst_map = torch.zeros(shape, dtype=torch.int32)
     else:
         mgr._pred_map_path = str(tmp_path / f"{tag}.npy")
         np.save(mgr._pred_map_path, pred)
@@ -83,6 +89,17 @@ def three_phases(mgr):
     mgr._dispatch_post_processing(tb, mgr._cb_fixing_tile, "p2")
     mgr._dispatch_post_processing(tc, mgr._cb_fixing_tile, "p3")
     return np.array(mgr.wsi_inst_map), mgr.wsi_inst_info
+
+
+def extraction_counts(mgr):
+    """(windows whose dict came from the device's tables, windows
+    extracted from a dense map, windows the callbacks took) of the
+    manager's phases."""
+    t = mgr._slide_times
+    return (t.get("pp_extract_windows_tables", 0),
+            t.get("pp_extract_windows_dense", 0),
+            t.get("pp_callback_windows_dev", 0)
+            + t.get("pp_callback_windows_host", 0))
 
 
 def assert_same(got, want):
@@ -103,12 +120,17 @@ def test_three_phases_equal_jax(tmp_path, dev_mode, nr_types):
     pred = pred_map(SHAPE, 5, 100, nr_types)
     want = three_phases(manager(JaxWSI, pred, tmp_path, "jax", dev_mode,
                                 nr_types))
-    got = three_phases(manager(PortWSI, pred, tmp_path, "port", dev_mode,
-                               nr_types))
+    port = manager(PortWSI, pred, tmp_path, "port", dev_mode, nr_types)
+    got = three_phases(port)
     assert len(want[1]) > 50
     assert_same(got, want)
     # the info dict matches the final map
     assert set(np.unique(got[0]).tolist()) - {0} == set(got[1])
+    # every window's dict from the device's tables beside a resident pred
+    # map, from the dense map on the mmap path
+    tables, dense, windows = extraction_counts(port)
+    assert windows > 10
+    assert (tables, dense) == ((windows, 0) if dev_mode else (0, windows))
 
 
 def test_three_phases_equal_jax_at_smoke_density(tmp_path):
@@ -132,8 +154,11 @@ def test_three_phases_equal_jax_at_smoke_density(tmp_path):
         ((PortWSI, "port"), (JaxWSI, "jax")))
     for mgr in (got, want):
         mgr.tile_shape, mgr.ambiguous_size = 512, 128
+    port = got
     got, want = three_phases(got), three_phases(want)
     assert_same(got, want)
+    tables, dense, windows = extraction_counts(port)
+    assert windows > 4 and (tables, dense) == (windows, 0)
     whole = proc_np_hv_batch(torch.from_numpy(pred.astype(np.float32))[None])
     n_whole = len(torch.unique(whole)) - 1
     assert n_whole > 80
@@ -237,7 +262,7 @@ def test_device_labels_apply_the_extractions_dropped_ids(tmp_path,
         return lab.to(torch.uint16), nlab + 40
 
     monkeypatch.setattr(PortWSI, "_post_proc", with_dots)
-    luts = count_calls(monkeypatch, "instance_info_lut")
+    luts = count_calls(monkeypatch, "instance_info_from_tables")
     want, _ = three_phases_counted(
         manager(PortWSI, pred, tmp_path, "np", True, 4),
         np.zeros(SHAPE, np.int32))
@@ -247,6 +272,24 @@ def test_device_labels_apply_the_extractions_dropped_ids(tmp_path,
     assert sum(lut is not None for _, lut in luts) > 10
     assert_same(got, want)
     assert set(np.unique(got[0]).tolist()) - {0} == set(got[1])
+
+
+@pytest.mark.parametrize("caps", [(4, 1 << 14), (4096, 300)],
+                         ids=["stat_cap", "coo_cap"])
+def test_window_tables_overflow_takes_the_dense_extraction(
+        tmp_path, monkeypatch, caps):
+    """Window tables too small for some windows (ids past `stat_cap`, or
+    boundary pixels past `coo_cap`): those windows pull their crop and
+    take the dense extraction, the others keep their tables, and the map
+    and dict equal the JAX manager's."""
+    pred = pred_map(SHAPE, 5, 100, 4)
+    monkeypatch.setattr(port_wsi, "window_caps", lambda area: caps)
+    want = three_phases(manager(JaxWSI, pred, tmp_path, "jax", True, 4))
+    port = manager(PortWSI, pred, tmp_path, "port", True, 4)
+    got = three_phases(port)
+    assert_same(got, want)
+    tables, dense, windows = extraction_counts(port)
+    assert tables > 0 and dense > 0 and tables + dense == windows
 
 
 def border_case():

@@ -32,14 +32,14 @@ TYPE_INFO = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "type_info.json")
 
 
-def paint(shape, seed, n):
-    """Instance labels of `n` seeded discs of radius 6-10."""
+def paint(shape, seed, n, radius=(6, 11)):
+    """Instance labels of `n` seeded discs of radius in [radius)."""
     rng = np.random.default_rng(seed)
     inst = np.zeros(shape, np.int32)
     yy, xx = np.mgrid[-12:13, -12:13]
     for k in range(1, n + 1):
         cy, cx = (int(v) for v in rng.integers(14, np.array(shape) - 14))
-        m = (yy ** 2 + xx ** 2) <= int(rng.integers(6, 11)) ** 2
+        m = (yy ** 2 + xx ** 2) <= int(rng.integers(*radius)) ** 2
         sub = inst[cy - 12:cy + 13, cx - 12:cx + 13]
         sub[m & (sub == 0)] = k
     return inst
@@ -68,28 +68,31 @@ def slide(tmp_path_factory):
     return root, tar, pred
 
 
-def run_slide(root, tar, pred, device, tag, host_map):
+def run_slide(root, tar, pred, device, tag, host_map,
+              nr_types=NR_TYPES, tile_shape=256, ambiguous_size=32):
     """`process_wsi_list` over the slide with `pred` stitched in place of
     the chunk loop's forward; with `host_map` the instance map is swapped
     for a numpy one before the phases. (json payload, the slide's
     timings, the manager)."""
-    mgr = WSIInferManager(model_path=tar, mode="fast", nr_types=NR_TYPES,
+    mgr = WSIInferManager(model_path=tar, mode="fast", nr_types=nr_types,
                           type_info_path=TYPE_INFO, width=WIDTH,
                           dtype=torch.float32, batch_size=8,
-                          device=device, chunk_shape=1000, tile_shape=256,
-                          ambiguous_size=32, proc_mag=40,
+                          device=device, chunk_shape=1000,
+                          tile_shape=tile_shape,
+                          ambiguous_size=ambiguous_size, proc_mag=40,
                           pred_map_dtype="float32",
                           cache_path=str(root / f"cache_{tag}"))
+    shape = pred.shape[:2]
 
     def stitched(chunk_info, patch_info):
-        mgr._pred_dev[:SHAPE[0], :SHAPE[1]] = torch.from_numpy(pred).to(
+        mgr._pred_dev[:shape[0], :shape[1]] = torch.from_numpy(pred).to(
             mgr._pred_dev.device)
 
     phases = mgr.post_process_phases
 
     def on_host_map():
         assert isinstance(mgr.wsi_inst_map, torch.Tensor)
-        mgr.wsi_inst_map = np.zeros(SHAPE, np.int32)
+        mgr.wsi_inst_map = np.zeros(shape, np.int32)
         return phases()
 
     mgr._get_raw_prediction = stitched
@@ -140,3 +143,87 @@ def test_resident_slide_keeps_its_instance_map_on_the_device(
     assert dev_json == host_json
     np.testing.assert_array_equal(inst_map.cpu().numpy(),
                                   host_mgr.wsi_inst_map)
+
+
+@pytest.fixture(scope="module")
+def dense_slide(tmp_path_factory):
+    """A 4096^2 pseudo-slide of full tissue at the slide cells' density
+    (PanNuke's 385 nuclei a tissue Mpx, discs of radius 5-10, 6 types),
+    its typed width-8 checkpoint and its float32 (tp, np, hv) prediction."""
+    root = tmp_path_factory.mktemp("wsi_dense")
+    shape = (4096, 4096)
+    net = HoVerNet(HoVerNetConfig(mode="fast", nr_types=6, width=WIDTH),
+                   generator=torch.Generator().manual_seed(0))
+    tar = str(root / "w8_6.tar")
+    torch.save({"desc": net.state_dict()}, tar)
+    os.makedirs(root / "in")
+    os.makedirs(root / "mask")
+    np.save(str(root / "in" / "s.npy"), np.zeros(shape + (3,), np.uint8))
+    cv2.imwrite(str(root / "mask" / "s.png"),
+                np.full((shape[0] // 16, shape[1] // 16), 255, np.uint8))
+    inst = paint(shape, 7, round(385 * shape[0] * shape[1] / 1e6),
+                 radius=(5, 11))
+    hv = gen_instance_hv_map(inst, shape)
+    pred = np.dstack([(inst % 6) * (inst > 0), inst > 0,
+                      hv[..., 0], hv[..., 1]]).astype(np.float32)
+    return root, tar, pred, inst
+
+
+@pytest.mark.gpu
+def test_window_tables_on_card_at_slide_density(dense_slide, monkeypatch):
+    """A resident slide at the cells' density and window size (2048^2
+    tiles, 128-px ambiguous strips): every window's dict comes from the
+    card's tables (`pp_extract_windows_tables`, none dense), and the json
+    equals the json of the same slide with every window's dense
+    extraction forced. Prints the table pass's card time a 2048^2 window
+    (CUDA events over batches of 4, as phase 1 sends them) and holds it to
+    1.5 ms a Mpx."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from hover_net_tpu_torch.infer import wsi as wsi_mod
+    from hover_net_tpu_torch.ops.post_proc_device import (
+        remap_labels_u16, window_caps, window_tables)
+
+    root, tar, pred, inst = dense_slide
+    kw = dict(nr_types=6, tile_shape=2048, ambiguous_size=128)
+    got, times, mgr = run_slide(root, tar, pred, "cuda", "tables", False,
+                                **kw)
+    windows = times["pp_callback_windows_dev"]
+    assert windows > 10
+    assert times["pp_extract_windows_tables"] == windows
+    assert times["pp_extract_windows_dense"] == 0
+    assert len(got["nuc"]) > 5000
+
+    monkeypatch.setattr(wsi_mod, "instance_info_from_tables",
+                        lambda *args: (None, None))
+    want, dense_times, _ = run_slide(root, tar, pred, "cuda", "dense", False,
+                                     **kw)
+    assert dense_times["pp_extract_windows_dense"] == windows
+    assert dense_times["pp_extract_windows_tables"] == 0
+    assert got == want
+
+    # the table pass alone on the slide's four 2048^2 windows
+    side = 2048
+    corners = [(y, x) for y in (0, side) for x in (0, side)]
+    lab = torch.stack([remap_labels_u16(torch.from_numpy(
+        inst[y:y + side, x:x + side]).cuda()) for y, x in corners])
+    tp = torch.stack([torch.from_numpy(pred[y:y + side, x:x + side, 0])
+                      for y, x in corners]).cuda().to(torch.uint8)
+    caps = window_caps(side * side)
+    out = window_tables(lab, tp, 6, *caps)
+    assert int(out["coo_n"].max()) < caps[1]
+    assert int(out["n"].max()) < caps[0]
+    reps = 10
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        window_tables(lab, tp, 6, *caps)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps / 4
+    mpx = side * side / 1e6
+    print(f"window tables: {ms:.3f} ms a 2048^2 window "
+          f"({ms / mpx:.3f} ms/Mpx; budget 1.5), "
+          f"n {out['n'].tolist()}, coo_n {out['coo_n'].tolist()} "
+          f"({torch.cuda.get_device_name(0)})")
+    assert ms / mpx <= 1.5
