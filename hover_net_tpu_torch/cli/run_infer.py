@@ -26,6 +26,16 @@ attention, 1024 -> 960 patches, batch 8 by default, typed: give
       --nr_types 6 --type_info_path type_info.json \
       wsi --input_dir slides/ --output_dir out/
 
+Cellpose-SAM in `cellpose_sam` (SAM ViT-L re-cut to 8x8 patches, every
+block global, 256 -> 224 blocks at batch 8, untyped: no `--nr_types`;
+`--model_path` Cellpose's `cpsam` or a `.tar`) runs through `tile` only,
+its masks from Cellpose's flow dynamics on the device; `wsi` refuses it,
+since Cellpose normalises each image by its own percentiles:
+
+  python -m hover_net_tpu_torch.cli.run_infer \
+      --model_path cpsam --model_mode cellpose_sam \
+      tile --input_dir in/ --output_dir out/
+
 On a GPU a fast-mode model (bf16, as both subcommands build it) whose
 4 * width is a multiple of 128 runs its encoder d0..d2 as the fused-block
 CUDA kernel K3 (infer/steps._use_fused_enc). `--host_post_proc` (tile)
@@ -59,9 +69,10 @@ def build_parser():
     p.add_argument("--model_mode", default="fast", choices=MODES)
     p.add_argument("--batch_size", type=int, default=None,
                    help="patches a forward batch (default: 32 for "
-                        "HoVer-Net, 8 for CellViT)")
+                        "HoVer-Net, 8 for CellViT and Cellpose-SAM)")
     p.add_argument("--width", type=int, default=64,
-                   help="HoVer-Net's width (CellViT's are the published)")
+                   help="HoVer-Net's width (CellViT's and Cellpose-SAM's "
+                        "are the published)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
     p.add_argument("--nr_inference_workers", type=int, default=8,
@@ -118,7 +129,8 @@ def main(argv=None):
     """Runs the subcommand; returns its manager."""
     from .. import runtime
 
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
         format="|%(asctime)s.%(msecs)03d| [%(levelname)s] %(message)s",

@@ -72,8 +72,9 @@ class TrainConfig:
         if self.model_mode not in MODE_SHAPES:
             raise ValueError(
                 f"model_mode {self.model_mode!r}: run_train trains HoVer-Net "
-                f"in {sorted(MODE_SHAPES)} mode only (CellViT runs through "
-                f"run_infer, from a trained checkpoint)")
+                f"in {sorted(MODE_SHAPES)} mode only (CellViT and "
+                f"Cellpose-SAM run through run_infer, from a trained "
+                f"checkpoint)")
         if self.phases is None:
             self.phases = default_phases(self.model_mode, self.pretrained)
         if not self.type_classification:

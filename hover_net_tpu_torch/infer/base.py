@@ -1,15 +1,16 @@
 """Shared inference manager: devices, model and checkpoint, type info, json.
 
 Counterpart of hover_net_tpu/infer/base.py. The manager builds the model
-of its `mode` (models/zoo.py): HoVer-Net in `fast` or `original` mode, or
-CellViT-SAM-H in `cellvit_sam_h` (the port's own; the JAX package has
-none). A HoVer-Net checkpoint is a reference PyTorch `.tar` ({'desc':
-state_dict}) or the port trainer's `.tar`, or a `.msgpack` of the JAX
-package (its trainer's `net_epoch=N.msgpack`), read without flax and
-checked against the model as the JAX managers check it
-(models/checkpoints.load_model_state); a CellViT checkpoint is its
-`.pth` ({'model_state_dict': ...}) or a `.tar`. Each loads into the
-port's module tree with strict=True.
+of its `mode` (models/zoo.py): HoVer-Net in `fast` or `original` mode,
+CellViT-SAM-H in `cellvit_sam_h` or Cellpose-SAM in `cellpose_sam` (the
+port's own; the JAX package has neither). A HoVer-Net checkpoint is a
+reference PyTorch `.tar` ({'desc': state_dict}) or the port trainer's
+`.tar`, or a `.msgpack` of the JAX package (its trainer's
+`net_epoch=N.msgpack`), read without flax and checked against the model
+as the JAX managers check it (models/checkpoints.load_model_state); a
+CellViT checkpoint is its `.pth` ({'model_state_dict': ...}) or a `.tar`;
+a Cellpose-SAM one its plain state dict (`cpsam`) or a `.tar`. Each loads
+into the port's module tree with strict=True.
 
 A manager runs on an ordered list of devices (`devices`): the first
 holds the loaded model, and `model_on(device)` gives a replica on any

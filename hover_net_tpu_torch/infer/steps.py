@@ -9,7 +9,12 @@ the device allow it (`_use_fused_enc`), and `HoVerNet.encode` elsewhere.
 `make_tile_pipeline` is the counterpart of the JAX `run_dynamic` program:
 padded image -> patch gather -> forward -> stitch -> reflect-101 mirror
 about the source with its valid mask -> post-processing (the CUDA tail
-kernel on a GPU) -> uint16 label compaction -> per-instance tables.
+kernel on a GPU) -> uint16 label compaction -> per-instance tables. A
+model that outputs Cellpose's flows (models/cellpose_sam.py) takes the
+flow pipeline instead: the image normalised on the device, the patch
+gather, forward and stitch, then Cellpose's dynamics over the source
+(ops/flow_dynamics.py) and the same tables; the one branch on what the
+model outputs is `make_tile_pipeline`'s.
 
 `StageEvents` holds one pipeline call's CUDA events: the caller makes
 one a call and reads it (`ms()`) after the call's outputs have reached
@@ -23,8 +28,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..models.cellpose_sam import FLOW_CHANNELS, FLOW_KEY, normalize99
 from ..models.encoder_fused import fused_encode
 from ..models.hovernet import HoVerNet, HoVerNetConfig
+from ..ops.flow_dynamics import COUNTERS, compute_masks
 from ..ops.post_proc_cuda import proc_tail
 from ..ops.post_proc_device import (
     compact_labels_u16,
@@ -73,6 +80,9 @@ def standard_encoder(on: bool = True):
 # the tile pipeline's stages, in order: each one's device ms runs from
 # the end of the one before (the first from the call's start)
 STAGES = ("forward", "energy", "post_proc_tail", "tables")
+# the flow pipeline's (a model with Cellpose's outputs)
+FLOW_STAGES = ("forward", "flow_follow", "flow_masks", "flow_error",
+               "tables")
 
 
 class StageEvents:
@@ -142,6 +152,8 @@ def infer_output(model: HoVerNet, imgs: torch.Tensor) -> torch.Tensor:
         enc, dec = getattr(model, "forward_parts", ("encoder", "decoders"))
         events.part(enc, start, mid)
         events.part(dec, mid, end)
+    if FLOW_KEY in out:  # Cellpose's [dY, dX, cellprob]
+        return out[FLOW_KEY].float().permute(0, 2, 3, 1)
     parts = []
     if "tp" in out:
         tp = torch.argmax(torch.softmax(out["tp"], dim=1), dim=1)
@@ -184,7 +196,16 @@ def tables_tail(full: torch.Tensor, inst_batch: torch.Tensor,
     h, w = inst.shape[1], inst.shape[2]
     tp_map = (full[..., 0].to(torch.uint8) if typed
               else torch.zeros((h, w), dtype=torch.uint8, device=full.device))
-    t = instance_tables(inst[0].to(torch.int32), tp_map,
+    return inst, n_labels, tp_map, pack_tables(inst[0], tp_map, nr_types)
+
+
+def pack_tables(inst: torch.Tensor, tp_map: torch.Tensor,
+                nr_types: Optional[int]) -> Dict[str, torch.Tensor]:
+    """The per-instance tables of an [H, W] map of ids 0..n, packed as the
+    finalize pulls them: {"stats", "coo", "coo_n"}."""
+    typed = nr_types is not None
+    h, w = inst.shape
+    t = instance_tables(inst.to(torch.int32), tp_map,
                         coo_cap=min(1 << 16, h * w), nr_types=nr_types,
                         with_sums=typed)
     parts = [t["bbox"]]
@@ -192,9 +213,8 @@ def tables_tail(full: torch.Tensor, inst_batch: torch.Tensor,
         parts += [t["sum_yx"], t["size"][:, None]]
     if "type_hist" in t:
         parts.append(t["type_hist"])
-    tables = {"stats": torch.cat(parts, dim=-1), "coo": t["coo"],
-              "coo_n": t["coo_n"]}
-    return inst, n_labels, tp_map, tables
+    return {"stats": torch.cat(parts, dim=-1), "coo": t["coo"],
+            "coo_n": t["coo_n"]}
 
 
 def forward_batches(model: HoVerNet, patches: torch.Tensor,
@@ -231,6 +251,12 @@ def assemble_grid(patch_out: torch.Tensor,
     return full.reshape(r * h, c * w, ch)
 
 
+def flow_outputs(model) -> bool:
+    """Whether `model` outputs Cellpose's flows [dY, dX, cellprob]
+    (models/cellpose_sam.py) in place of HoVer-Net's np / hv (/ tp)."""
+    return getattr(model, "outputs", None) == FLOW_CHANNELS
+
+
 def make_tile_pipeline(model: HoVerNet, grid: Tuple[int, int],
                        batch: int = 0):
     """(padded_img [H, W, 3], coords [K, 2], src_hw, events=None) ->
@@ -242,8 +268,17 @@ def make_tile_pipeline(model: HoVerNet, grid: Tuple[int, int],
 
     `events`, a `StageEvents` of the call's device, receives CUDA events
     at the ends of its `STAGES` (forward: gather to stitch; energy;
-    post_proc_tail; tables) and the forward's `encoder` and `decoders`
-    parts; the call itself never waits for them."""
+    post_proc_tail; tables) and the forward's parts (`encoder` and
+    `decoders`, or the model's `forward_parts`); the call itself never
+    waits for them.
+
+    What the model outputs picks the post-processing, here alone: for
+    Cellpose's flows (`flow_outputs`) the image is first normalised on the
+    device (`normalize99` over the source), the stitched map is
+    [dY, dX, cellprob], its source region goes through Cellpose's dynamics
+    (`ops/flow_dynamics.compute_masks`, stages `FLOW_STAGES`), the labels
+    (int32, zero outside the source) through the same tables, and
+    `tables["counters"]` holds the counts of `flow_dynamics.COUNTERS`."""
     win = model.cfg.patch_input_shape
     nr_types = model.cfg.nr_types
 
@@ -251,6 +286,29 @@ def make_tile_pipeline(model: HoVerNet, grid: Tuple[int, int],
         patches = extract_patches(padded_img, coords, win)
         return assemble_grid(forward_batches(model, patches, batch, events),
                              grid)
+
+    @torch.no_grad()
+    def run_flows(padded_img: torch.Tensor, coords: torch.Tensor,
+                  src_hw: Tuple[int, int],
+                  events: Optional[StageEvents] = None):
+        mark = events.stage if events is not None else lambda name: None
+        mark("start")
+        pad = (win - model.cfg.patch_output_shape) // 2
+        img = normalize99(padded_img, src_hw, (pad, pad))
+        full = forward_stitch(img, coords, events)
+        mark("forward")
+        h, w = src_hw
+        labels, counters = compute_masks(full[:h, :w].permute(2, 0, 1), mark)
+        inst = torch.zeros(full.shape[:2], dtype=torch.int32,
+                           device=full.device)
+        inst[:h, :w] = labels
+        tp_map = torch.zeros(inst.shape, dtype=torch.uint8,
+                             device=full.device)
+        tables = pack_tables(inst, tp_map, None)
+        tables["counters"] = torch.stack([counters[k].to(torch.int64)
+                                          for k in COUNTERS])
+        mark("tables")
+        return full, inst, inst.max().reshape(1), tp_map, tables
 
     @torch.no_grad()
     def run(padded_img: torch.Tensor, coords: torch.Tensor,
@@ -269,5 +327,7 @@ def make_tile_pipeline(model: HoVerNet, grid: Tuple[int, int],
         mark("tables")
         return full, inst[0], n_labels, tp_map, tables
 
+    if flow_outputs(model):
+        run = run_flows
     run.forward_stitch = forward_stitch
     return run

@@ -1,5 +1,11 @@
 """Tile inference: a directory of images -> json / mat / overlay / qupath.
 
+HoVer-Net, CellViT and Cellpose-SAM run through it; what the model
+outputs picks the post-processing (infer/steps.make_tile_pipeline):
+HoVer-Net's maps go through the energy and K1, Cellpose's flows through
+its dynamics (ops/flow_dynamics.py), and both through the same tables,
+finalize and json.
+
 Counterpart of hover_net_tpu/infer/tile.py. Each image is reflect-padded
 and zero-extended to its canonical patch grid exactly as the JAX package
 does (prepare_tile_patching, bucket_grid_dim), so the canvas matches it
@@ -56,6 +62,7 @@ import torch
 
 from ..data.tiling import bucket_grid_dim, prepare_tile_patching
 from ..metrics.stats import remap_label
+from ..ops.flow_dynamics import COUNTERS
 from ..ops.instance_table import apply_lut
 from ..ops.post_proc_host import (
     extract_instance_info,
@@ -70,6 +77,7 @@ from .steps import (
     StageEvents,
     assemble_grid,
     extract_patches,
+    flow_outputs,
     make_tile_pipeline,
 )
 
@@ -95,10 +103,22 @@ class TileInferManager(base.InferManagerBase):
     `from_tables`, whether the json came from the device tables through
     the native contour tracer (False: the dense-map fallback ran); on
     the host branch (`device_post_proc=False`) the host post-processing
-    ms."""
+    ms. A model with Cellpose's outputs (`steps.flow_outputs`) runs the
+    stages `steps.FLOW_STAGES`, its forward's parts `vit_encoder` and
+    `readout` and the attention's `global_attn`, and adds its counters
+    `n_seeds`, `n_dropped_flow_error` and `n_dropped_small`; its json is
+    untyped, and the host branch refuses it (the oracle post-processes
+    HoVer-Net's maps)."""
+
+    # the counters of the last image finalized (a flow model's)
+    last_counters: dict = {}
 
     def __init__(self, *args, device_post_proc: bool = True, **kwargs):
         super().__init__(*args, **kwargs)
+        if not device_post_proc and flow_outputs(self.model):
+            raise ValueError(f"--host_post_proc post-processes HoVer-Net's "
+                             f"maps; {self.cfg.mode} runs Cellpose's flow "
+                             f"dynamics on the device")
         self.patch_input_shape = self.cfg.patch_input_shape
         self.patch_output_shape = self.cfg.patch_output_shape
         self.device_post_proc = device_post_proc
@@ -199,6 +219,8 @@ class TileInferManager(base.InferManagerBase):
                 host_tables, n, typed=self.nr_types is not None)
 
         self.last_from_tables = inst_info is not None
+        self.last_counters = ({} if "counters" not in tables else dict(zip(
+            COUNTERS, tables["counters"].cpu().tolist())))
         if inst_info is None:
             # a table capacity was exceeded: dense-map path
             inst_map = remap_label(_to_numpy(inst_dev)[:src_h, :src_w]
@@ -314,7 +336,8 @@ class TileInferManager(base.InferManagerBase):
                     read_ms=times["read"] * 1e3,
                     dispatch_ms=times["dispatch"] * 1e3,
                     finalize_ms=(t2 - t1) * 1e3,
-                    from_tables=self.last_from_tables))
+                    from_tables=self.last_from_tables,
+                    **self.last_counters))
                 logger.info("done %s (%d nuclei, %.2fs)", name,
                             len(inst_info), t2 - t0)
             except Exception:

@@ -117,7 +117,7 @@ from ..parallel.mesh import (
 )
 from ..runtime import forward_events, span
 from . import base
-from .steps import StageEvents, extract_patches, infer_output
+from .steps import StageEvents, extract_patches, flow_outputs, infer_output
 from .wsi_handler import get_file_handler
 
 logger = logging.getLogger("hover_net_tpu_torch")
@@ -269,6 +269,10 @@ class WSIInferManager(base.InferManagerBase):
         (`devices=["cuda:0"] * 2` prices the striped path against the
         single-device one on one card)."""
         super().__init__(*args, **kwargs)
+        if flow_outputs(self.model):
+            raise ValueError(f"{self.cfg.mode} runs through the tile "
+                             f"manager only: Cellpose normalises each "
+                             f"image by its own percentiles")
         self.chunk_shape = int(chunk_shape)
         self.tile_shape = int(tile_shape)
         self.ambiguous_size = int(ambiguous_size)

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .cellpose_sam import CELLPOSE_MODES
 from .hovernet import HoVerNetConfig
 from .msgpack_io import msgpack_restore, msgpack_serialize
 
@@ -177,9 +178,10 @@ def save_torch_tar(path: str, variables, cfg: HoVerNetConfig,
 
 
 def load_torch_tar(path: str) -> Dict[str, torch.Tensor]:
-    """State dict of a reference '.tar' ({'desc': state_dict}) or of
-    CellViT's '.pth' ({'model_state_dict': state_dict, ...}), with the
-    DataParallel 'module.' prefix stripped."""
+    """State dict of a reference '.tar' ({'desc': state_dict}), of
+    CellViT's '.pth' ({'model_state_dict': state_dict, ...}) or of a
+    plain state dict (Cellpose's `cpsam`), with the DataParallel
+    'module.' prefix stripped."""
     return _desc(torch.load(path, map_location="cpu", weights_only=True))
 
 
@@ -300,8 +302,11 @@ def load_model_state(path: str, cfg: HoVerNetConfig
     managers pick the loader: a reference or trainer `.tar` (`.pth`,
     `.pt`), else the JAX package's msgpack (checked by
     `check_variables`). A CellViT model (models/cellvit.py) reads a
-    `.pth` or `.tar` only."""
-    if str(path).endswith((".tar", ".pth", ".pt")):
+    `.pth` or `.tar` only; a Cellpose-SAM model (models/cellpose_sam.py)
+    reads Cellpose's own file (`cpsam`, a plain state dict under any
+    name) or a `.tar`."""
+    if str(path).endswith((".tar", ".pth", ".pt")) or \
+            cfg.mode in CELLPOSE_MODES:
         return load_torch_tar(path)
     if not isinstance(cfg, HoVerNetConfig):
         raise ValueError(f"checkpoint {path}: a {cfg.mode} model loads a "

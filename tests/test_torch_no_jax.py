@@ -91,6 +91,12 @@ def test_cellvit_module_is_checked():
     assert "hover_net_tpu_torch/models/cellvit.py" in port_sources()
 
 
+@pytest.mark.parametrize("path", ["hover_net_tpu_torch/models/cellpose_sam.py",
+                                  "hover_net_tpu_torch/ops/flow_dynamics.py"])
+def test_cellpose_modules_are_checked(path):
+    assert path in port_sources()
+
+
 def reference_sources():
     """Every .py file of the benchmark's plain references."""
     ref = os.path.join(REPO, "benchmark", "reference")
@@ -110,6 +116,31 @@ def test_reference_imports_no_program(path):
               if isinstance(n, ast.ImportFrom) and n.level == 0]
     assert not [n for n in names if n.split(".")[0] in
                 ("hover_net_tpu_torch", "hover_net_tpu", "jax", "flax")], path
+
+
+def test_cellpose_reference_is_checked():
+    assert {"benchmark/reference/cellpose_sam.py",
+            "benchmark/reference/cellpose_recipe.py"} <= set(
+                reference_sources())
+
+
+def test_new_traffic_modules_import_without_jax():
+    """A fresh interpreter imports the Cellpose-SAM and four-card traffic
+    modules, the Cellpose reference and its recipe: neither jax nor any
+    module of the JAX package is loaded."""
+    code = (
+        "import sys\n"
+        "import benchmark.traffic.tile_cellpose\n"
+        "import benchmark.traffic.wsi_4chip\n"
+        "import benchmark.reference.cellpose_recipe\n"
+        "import benchmark.reference.cellpose_sam\n"
+        "import hover_net_tpu_torch.ops.flow_dynamics\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
 
 
 def test_port_modules_import_without_jax():
